@@ -1,0 +1,351 @@
+"""Pooled-scale refinement engine (half / quarter): port of the main-path
+subset of ``iterative_inference_segm_tpu.inference.fused``.
+
+The engine runs K refinement steps on the class map avg-pooled to the DAE's
+stem scale (/2 for stem_pool=1, the "half" engine; /4 for stem_pool=2, the
+"quarter" engine), then one full-resolution rectification:
+
+    x_0     = avg_pool^sp(y_0)
+    x_{k+1} = blend(x_k, softmax(core(x_k) + si_h(x_k)), eps)
+    y_K     = blend(y_0, softmax(up(core(x_K)) + si(y_0)), eps)
+
+``lax.scan`` becomes a Python loop of K steps. Every softmax + blend on these
+paths (K per-step ones and the rectification's, which also emits the argmax
+labels) runs in ``ops.refine_tail``: the per-step crop + add of the two
+convolution outputs, the softmax, the blend and the argmax are one pass of
+the hand-written kernel on a CUDA tensor. The convolutions stay on cuDNN.
+
+Blend forms. The JAX package writes the update as ``x - eps * (x - r)``;
+the kernel computes ``(1 - eps) * x + eps * r`` in f32 and rounds once on
+the store. In f32 the two agree to a few ulps. In bf16 the JAX form rounds
+three times (and holds ``eps`` itself in bf16: 0.1 becomes 0.10009765625),
+so one step differs by at most 2^-8 = 0.0039, one bf16 ulp on [0.5, 1);
+measured on the CPU with torch's bf16 arithmetic over 10^6 random C=11
+pixels: mean |diff| 3.8e-5, 16% of values differ, argmax agreement
+99.986%. The bf16 tests tolerate this.
+
+Not ported here: energy mode, the 'sep' tail and the phase-major ``fused``
+engine raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from iterative_inference_segm_tpu_torch.models.dae import (
+    dae_core,
+    dae_stem_pool_of,
+    dae_tail_of,
+    precompute_bottleneck_h,
+)
+from iterative_inference_segm_tpu_torch.ops.conv import (
+    avg_pool,
+    conv2d,
+    conv_transpose2d,
+    crop_to,
+)
+from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail
+
+
+def _require_full_tail(params: dict) -> None:
+    if dae_tail_of(params) == "sep":
+        raise NotImplementedError("tail='sep' is not ported yet (ROADMAP.md, Queue 1)")
+
+
+def _check_mode(mode: str) -> None:
+    if mode == "energy":
+        raise NotImplementedError("energy mode is not ported yet (ROADMAP.md, Queue 1)")
+    if mode != "score":
+        raise ValueError(f"unknown mode {mode!r}; expected 'score' or 'energy'")
+
+
+def half_logits(params: dict, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Pooled-scale tail logits ``s + score_input(x)``; ``s`` = dae_core(x)."""
+    _require_full_tail(params)
+    p = params["score_input"]
+    return s + conv2d(x, p["w"], p["b"], padding="SAME")
+
+
+def _full_tail_terms(params: dict, s_k: torch.Tensor, y: torch.Tensor):
+    """``(u, v)`` with ``full_logits = crop_to(u, H, W) + v``: ``u`` the
+    uncropped ``up_stem`` deconv chain of ``s_k``, ``v`` score_input on y."""
+    _require_full_tail(params)
+    u = s_k
+    for j in range(dae_stem_pool_of(params)):
+        u = conv_transpose2d(u, params[f"up_stem{j + 1}"]["w"], stride=2)
+    p = params["score_input"]
+    return u, conv2d(y.to(u.dtype), p["w"], p["b"], padding="SAME")
+
+
+def full_logits(params: dict, s_k: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Full-resolution rectification logits: the DAE's stem tail applied
+    once (``up_stem`` chain back to /1 + score_input on y)."""
+    u, v = _full_tail_terms(params, s_k, y)
+    return crop_to(u, int(y.shape[1]), int(y.shape[2])) + v
+
+
+def fold_half_tail(params: dict, *, encoder: str = "pool") -> dict:
+    """Compose the per-step tail's linear ops into fewer convolutions
+    (``out`` folds into ``up1`` and ``score_enc1``; for the pool encoder
+    ``score_enc1'`` and ``score_input`` merge into one 3x3 conv over
+    ``concat(skip1, x)``). Kernels are composed and kept in f32, in the
+    port's layouts (OIHW convs, flipped (I, O, k, k) transposed convs)."""
+    if dae_tail_of(params) != "full" or dae_stem_pool_of(params) < 1:
+        raise ValueError("fold_half_tail requires a stem_pool>=1, tail='full' DAE")
+    f32 = torch.float32
+    w_out = params["out"]["w"][:, :, 0, 0].to(f32)  # (C_out, C_mid)
+    b_out = params["out"]["b"].to(f32)
+    up1p = torch.einsum("imhw,om->iohw", params["up1"]["w"].to(f32), w_out)
+    si_w = params["score_input"]["w"].to(f32)  # (C, C, 3, 3)
+    si_b = params["score_input"]["b"].to(f32)
+    fk = {"up1p": up1p, "b_out": b_out, "si_w": si_w, "si_b": si_b}
+    if encoder == "pool":
+        se1_w = params["score_enc1"]["w"].to(f32)  # (C_mid, c1, 1, 1)
+        se1p_w = torch.einsum("om,mihw->oihw", w_out, se1_w)
+        bp = w_out @ params["score_enc1"]["b"].to(f32) + b_out
+        c1 = int(se1_w.shape[1])
+        cat_w = torch.zeros((si_w.shape[0], c1 + si_w.shape[1], 3, 3), dtype=f32, device=si_w.device)
+        cat_w[:, :c1, 1, 1] = se1p_w[:, :, 0, 0]
+        cat_w[:, c1:] = si_w
+        fk.update(se1p_w=se1p_w, bp=bp, cat_w=cat_w, cat_b=bp + si_b)
+    return fk
+
+
+def _folded_step_terms(fk: dict, pre, skip1, x, *, encoder: str):
+    """``(u, v, b)`` with ``folded_step_logits = crop_to(u) + b + v``."""
+    u = conv_transpose2d(pre, fk["up1p"], stride=2)
+    if encoder == "pool":
+        cat = torch.cat([skip1, x.to(skip1.dtype)], dim=-1)
+        return u, conv2d(cat, fk["cat_w"], fk["cat_b"], padding="SAME"), None
+    return u, conv2d(x, fk["si_w"], fk["si_b"], padding="SAME"), fk["b_out"]
+
+
+def folded_step_logits(fk: dict, pre, skip1, x, *, encoder: str) -> torch.Tensor:
+    """Per-step denoiser logits from the predense core state (== out(core) +
+    score_input(x) by linearity; see ``fold_half_tail``)."""
+    u, v, b = _folded_step_terms(fk, pre, skip1, x, encoder=encoder)
+    s = crop_to(u, int(v.shape[1]), int(v.shape[2]))
+    if b is not None:
+        s = s + b.to(s.dtype)
+    return s + v
+
+
+def folded_core_out(fk: dict, pre, skip1, *, encoder: str, out_hw: tuple[int, int]):
+    """The standard core output (dae_core's post-``out`` result) recovered
+    from the predense state, for the rectification's ``full_logits``."""
+    s = conv_transpose2d(pre, fk["up1p"], stride=2)
+    if encoder == "pool":
+        sk = conv2d(skip1, fk["se1p_w"], fk["bp"], padding="SAME")
+        return crop_to(s, int(sk.shape[1]), int(sk.shape[2])) + sk
+    return crop_to(s, out_hw[0], out_hw[1]) + fk["b_out"].to(s.dtype)
+
+
+def _pooled_carry(params: dict, y0: torch.Tensor, state_dtype):
+    """Validate the engine's preconditions (stem_pool>=1 DAE, H and W
+    divisible by the pooling factor) and build ``x0 = avg_pool^sp(y0)``.
+    Returns ``(sp, state_dtype, x0)``."""
+    sp = dae_stem_pool_of(params)
+    if sp < 1:
+        raise ValueError("half engine requires a stem_pool>=1 DAE")
+    if state_dtype is None:
+        state_dtype = y0.dtype
+    _, h, w, _ = y0.shape
+    if h % (1 << sp) or w % (1 << sp):
+        raise ValueError(f"half engine requires H, W divisible by {1 << sp}")
+    x0 = y0.to(state_dtype)
+    for _ in range(sp):
+        x0 = avg_pool(x0, window=2, stride=2)
+    return sp, state_dtype, x0
+
+
+def _rectify(params, s_k, y0, eps, state_dtype, with_labels):
+    """The one full-resolution step: kernel over ``full_logits``' terms."""
+    y0s = y0.to(state_dtype)
+    u, v = _full_tail_terms(params, s_k.to(state_dtype), y0s)
+    return refine_tail(u, y0s, eps, v=v, with_labels=with_labels)
+
+
+def halfres_refinement_scan(
+    params: dict,
+    core_fn: Callable[[torch.Tensor], torch.Tensor],
+    y0: torch.Tensor,
+    *,
+    eps: float,
+    num_steps: int,
+    state_dtype=None,
+    mode: str = "score",
+    with_labels: bool = False,
+):
+    """K score steps on the pooled class map + one full-res rectification
+    (unfolded tail). Returns ``y_K`` at ``state_dtype``, or ``(y_K,
+    labels)`` with ``with_labels``. Score mode only."""
+    _check_mode(mode)
+    _require_full_tail(params)
+    _, state_dtype, x = _pooled_carry(params, y0, state_dtype)
+    si = params["score_input"]
+    for _ in range(num_steps):
+        s = core_fn(x).to(state_dtype)
+        x = refine_tail(s, x, eps, v=conv2d(x, si["w"], si["b"], padding="SAME"))
+    return _rectify(params, core_fn(x), y0, eps, state_dtype, with_labels)
+
+
+def halfres_refinement_scan_folded(
+    params: dict,
+    predense_fn: Callable[[torch.Tensor], tuple],
+    y0: torch.Tensor,
+    *,
+    eps: float,
+    num_steps: int,
+    state_dtype=None,
+    encoder: str = "pool",
+    with_labels: bool = False,
+):
+    """Score-mode engine with the folded per-step tail (``fold_half_tail``).
+    ``predense_fn(x) -> (pre, skip1)`` is ``dae_core(..., predense=True)``.
+    Returns ``y_K`` or ``(y_K, labels)``."""
+    _, state_dtype, x = _pooled_carry(params, y0, state_dtype)
+    fk = fold_half_tail(params, encoder=encoder)
+    for _ in range(num_steps):
+        pre, sk1 = predense_fn(x)
+        u, v, b = _folded_step_terms(fk, pre, sk1, x, encoder=encoder)
+        x = refine_tail(u.to(state_dtype), x, eps, v=v.to(state_dtype), b=b)
+    pre, sk1 = predense_fn(x)
+    s_k = folded_core_out(
+        fk, pre, sk1, encoder=encoder, out_hw=(int(x.shape[1]), int(x.shape[2]))
+    )
+    return _rectify(params, s_k, y0, eps, state_dtype, with_labels)
+
+
+def halfres_refine(
+    dae_params: dict,
+    y0: torch.Tensor,
+    h,
+    in_hw: tuple[int, int],
+    *,
+    eps: float,
+    num_steps: int,
+    depth: int,
+    compute_dtype,
+    state_dtype=None,
+    encoder: str = "pool",
+    mode: str = "score",
+    fold_tail: bool | None = None,
+    with_labels: bool = False,
+):
+    """The pooled-engine refinement from a precomputed FCN forward (shared
+    by ``flagship_forward_fn`` and ``Predictor``). ``in_hw`` is the full
+    resolution; stem_pool comes from the param tree; ``fold_tail=None``
+    folds whenever legal (score mode, 'full' tail)."""
+    _check_mode(mode)
+    _require_full_tail(dae_params)
+    if fold_tail is None:
+        fold_tail = True
+    sp = dae_stem_pool_of(dae_params)
+    bh = precompute_bottleneck_h(
+        dae_params, h, depth=depth, stem_pool=sp, in_hw=(in_hw[0] >> sp, in_hw[1] >> sp)
+    )
+    state_dtype = state_dtype or compute_dtype
+    if fold_tail:
+
+        def predense_fn(x_half):
+            return dae_core(
+                dae_params, x_half.to(compute_dtype), bh[2], depth=depth, stem_pool=sp,
+                bottleneck_h=bh, encoder=encoder, predense=True,
+            )
+
+        return halfres_refinement_scan_folded(
+            dae_params, predense_fn, y0, eps=eps, num_steps=num_steps,
+            state_dtype=state_dtype, encoder=encoder, with_labels=with_labels,
+        )
+
+    def core_fn(x_half):
+        return dae_core(
+            dae_params, x_half.to(compute_dtype), bh[2], depth=depth, stem_pool=sp,
+            bottleneck_h=bh, encoder=encoder,
+        )
+
+    return halfres_refinement_scan(
+        dae_params, core_fn, y0, eps=eps, num_steps=num_steps,
+        state_dtype=state_dtype, mode=mode, with_labels=with_labels,
+    )
+
+
+def flagship_forward_fn(
+    *,
+    fcn_apply: Callable | None = None,
+    eps: float = 0.1,
+    num_steps: int = 5,
+    h_taps: tuple[str, ...] = ("pool4",),
+    depth: int = 3,
+    compute_dtype=torch.bfloat16,
+    state_dtype=None,
+    encoder: str = "pool",
+    mode: str = "score",
+    fold_tail: bool = True,
+    with_labels: bool = False,
+) -> Callable:
+    """The flagship pipeline as one function: ``forward(fcn_params,
+    dae_params, x) -> (y0, y_k)`` (``(y0, y_k, labels)`` with
+    ``with_labels``): FCN-8 forward with the conditioning taps, K pooled-map
+    steps at the DAE's stem scale, one full-res rectification."""
+    _check_mode(mode)
+    if fcn_apply is None:
+        from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply as fcn_apply
+
+    def forward(fcn_params, dae_params, x):
+        y0, h = fcn_apply(
+            fcn_params, x, return_features=h_taps, compute_dtype=compute_dtype,
+            probs_dtype=state_dtype or compute_dtype,
+        )
+        out = halfres_refine(
+            dae_params, y0, h, (int(x.shape[1]), int(x.shape[2])),
+            eps=eps, num_steps=num_steps, depth=depth, compute_dtype=compute_dtype,
+            state_dtype=state_dtype, encoder=encoder, mode=mode, fold_tail=fold_tail,
+            with_labels=with_labels,
+        )
+        return (y0, *out) if with_labels else (y0, out)
+
+    return forward
+
+
+def fused_refinement_scan(*args, **kwargs):
+    """The phase-major engine is a TPU lane-padding layout (ROADMAP.md, "Not
+    ported"); the half engine above is the port's throughput path."""
+    raise NotImplementedError("the phase-major 'fused' engine is not ported (ROADMAP.md)")
+
+
+def make_fused_refiner(*args, **kwargs):
+    """See ``fused_refinement_scan``."""
+    raise NotImplementedError("the phase-major 'fused' engine is not ported (ROADMAP.md)")
+
+
+def make_half_refiner(
+    fcn_apply: Callable,
+    fcn_params: dict,
+    dae_params: dict,
+    *,
+    eps: float,
+    num_steps: int,
+    h_taps: tuple[str, ...] = ("pool4",),
+    depth: int = 3,
+    compute_dtype=torch.float32,
+    state_dtype=None,
+    encoder: str = "pool",
+    mode: str = "score",
+    fold_tail: bool | None = None,
+) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+    """Image batch -> ``(y0, yK)`` via the pooled engine, over fixed params
+    (the JAX version's jit has no counterpart: PyTorch runs eagerly)."""
+    forward = flagship_forward_fn(
+        fcn_apply=fcn_apply, eps=eps, num_steps=num_steps, h_taps=h_taps, depth=depth,
+        compute_dtype=compute_dtype, state_dtype=state_dtype, encoder=encoder, mode=mode,
+        fold_tail=True if fold_tail is None else fold_tail,
+    )
+
+    @torch.inference_mode()
+    def refine(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        return forward(fcn_params, dae_params, x)
+
+    return refine

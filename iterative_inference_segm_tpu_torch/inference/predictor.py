@@ -1,0 +1,177 @@
+"""Serving-facing predictor: weights -> fixed-batch inference on one device.
+
+Port of ``iterative_inference_segm_tpu.inference.predictor`` for the half
+engine: FCN-8 + the pooled-scale DAE refinement (``inference.fused.
+halfres_refine``, folded tail), whose rectification kernel also emits the
+label map. Requests of any size are cut into chunks of ``batch_size``; the
+last chunk is zero-padded to the full batch, as the JAX version pads to its
+one compiled shape. Runs eagerly under ``torch.inference_mode``.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID, DatasetConfig
+from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
+from iterative_inference_segm_tpu_torch.inference.fused import halfres_refine
+from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, init_dae
+from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
+from iterative_inference_segm_tpu_torch.utils.checkpoint import check_npz_meta, load_npz
+
+SCORE_ARCHS = ("dae", "mirror", "contextmod")
+
+
+def _check_arch(arch: str) -> None:
+    if arch not in SCORE_ARCHS:
+        raise ValueError(f"unknown score-network arch {arch!r}; expected one of {SCORE_ARCHS}")
+    if arch != "dae":
+        raise NotImplementedError(f"dae_arch={arch!r} is not ported yet (ROADMAP.md, Queue 1)")
+
+
+class Predictor:
+    def __init__(
+        self,
+        fcn_params: dict,
+        dae_params: dict | None = None,
+        *,
+        device: torch.device | str,
+        dataset: DatasetConfig = CAMVID,
+        eps: float = 0.1,
+        num_steps: int = 5,
+        h_taps: tuple[str, ...] = ("pool4",),
+        mode: str = "score",
+        engine: str = "half",
+        dae_arch: str = "dae",
+        batch_size: int = 8,
+        compute_dtype=torch.bfloat16,
+        normalize: bool = True,
+        input_scale: float = 1.0,
+        dae_kwargs: Mapping | None = None,
+        mesh=None,
+        pp_mesh=None,
+    ):
+        """``device`` is where the params live and every chunk runs (no
+        default, and no fallback: a CUDA device without a card raises).
+        ``engine='general'``, ``mesh`` and ``pp_mesh`` are not ported yet."""
+        if engine not in ("general", "half"):
+            raise ValueError(f"unknown engine {engine!r}; expected 'general' or 'half'")
+        if engine == "general":
+            raise NotImplementedError("engine='general' is not ported yet (ROADMAP.md, Queue 1)")
+        if mesh is not None or pp_mesh is not None:
+            raise NotImplementedError("mesh / pp_mesh serving is not ported yet (ROADMAP.md)")
+        _check_arch(dae_arch)
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1; got {batch_size}")
+        self.cfg = dataset
+        self.batch_size = batch_size
+        self.device = torch.device(device)
+        self._fcn = fcn_params
+        self._dae = dae_params
+        self._eps = eps
+        self._num_steps = num_steps
+        self._h_taps = tuple(h_taps)
+        self._mode = mode
+        self._compute_dtype = compute_dtype
+        self._normalize = normalize
+        self._input_scale = input_scale
+        dae_kwargs = dict(dae_kwargs or {})
+        self._depth = dae_kwargs.get("depth", 4)
+        self._encoder = dae_kwargs.get("encoder", "pool")
+        self._refine = dae_params is not None
+
+    @classmethod
+    def from_npz(
+        cls,
+        fcn_npz: str | os.PathLike,
+        dae_npz: str | os.PathLike | None = None,
+        *,
+        device: torch.device | str,
+        dataset: DatasetConfig = CAMVID,
+        fc_channels: int = 4096,
+        dae_depth: int = 4,
+        dae_stem_pool: int = 0,
+        dae_tail: str = "full",
+        dae_widths: tuple[int, ...] | None = None,
+        dae_encoder: str = "pool",
+        dae_arch: str = "dae",
+        h_taps: tuple[str, ...] = ("pool4",),
+        **kwargs,
+    ) -> "Predictor":
+        """Load flat-npz exports (JAX layout, from either package). The DAE's
+        shape-invisible flags (encoder, depth, stem_pool, tail, widths) are
+        checked against the checkpoint's stamped metadata first."""
+        _check_arch(dae_arch)
+        gen = torch.Generator().manual_seed(0)
+        fcn_t = init_fcn8(
+            gen, n_classes=dataset.n_classes, in_channels=dataset.in_channels,
+            fc_channels=fc_channels, device=device,
+        )
+        fcn = load_npz(fcn_npz, fcn_t)
+        dae = None
+        if dae_npz:
+            expect = {
+                "arch": "dae", "encoder": dae_encoder, "depth": dae_depth,
+                "stem_pool": dae_stem_pool, "tail": dae_tail,
+                **({"widths": tuple(dae_widths)} if dae_widths else {}),
+            }
+            check_npz_meta(dae_npz, expect, context=f"Predictor.from_npz({dae_npz})")
+            dae_t = init_dae(
+                gen, n_classes=dataset.n_classes,
+                h_specs={name: DAE_H_CHANNELS[name] for name in h_taps},
+                depth=dae_depth, stem_pool=dae_stem_pool, tail=dae_tail,
+                **({"widths": tuple(dae_widths)} if dae_widths else {}), device=device,
+            )
+            dae = load_npz(dae_npz, dae_t)
+        return cls(
+            fcn, dae, device=device, dataset=dataset, h_taps=h_taps, dae_arch=dae_arch,
+            dae_kwargs={"depth": dae_depth, "encoder": dae_encoder}, **kwargs,
+        )
+
+    def _predict(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One fixed-size chunk -> (labels int32, probs at the state dtype)."""
+        if self._normalize:
+            x = normalize_image(x, self.cfg, input_scale=self._input_scale)
+        # bf16 probs only when the half engine refines at bf16; an unrefined
+        # Predictor returns the f32 softmax baseline
+        y0, h = fcn8_apply(
+            self._fcn, x, return_features=self._h_taps if self._refine else (),
+            compute_dtype=self._compute_dtype,
+            probs_dtype=self._compute_dtype if self._refine else torch.float32,
+        )
+        if not self._refine:
+            return torch.argmax(y0, dim=-1).to(torch.int32), y0
+        y, labels = halfres_refine(
+            self._dae, y0, h, (int(x.shape[1]), int(x.shape[2])),
+            eps=self._eps, num_steps=self._num_steps, depth=self._depth,
+            compute_dtype=self._compute_dtype, encoder=self._encoder, mode=self._mode,
+            with_labels=True,
+        )
+        return labels, y
+
+    def predict(self, images: np.ndarray, *, return_probs: bool = False):
+        """images: (N, H, W, C) float in [0, 1] (or byte range with
+        ``input_scale=255.0``). Returns (N, H, W) int32 labels [, (N, H, W,
+        n_classes) float32 probs], as numpy arrays."""
+        images = np.asarray(images, np.float32)
+        labels_out, probs_out = [], []
+        with torch.inference_mode():
+            for start in range(0, images.shape[0], self.batch_size):
+                chunk = images[start : start + self.batch_size]
+                got = chunk.shape[0]
+                if got < self.batch_size:
+                    pad = np.zeros((self.batch_size - got, *chunk.shape[1:]), np.float32)
+                    chunk = np.concatenate([chunk, pad])
+                x = torch.from_numpy(chunk).to(self.device)
+                labels, probs = self._predict(x)
+                labels_out.append(labels[:got].cpu().numpy())
+                if return_probs:
+                    probs_out.append(probs[:got].float().cpu().numpy())
+        labels = np.concatenate(labels_out)
+        if return_probs:
+            return labels, np.concatenate(probs_out)
+        return labels
