@@ -1,16 +1,18 @@
 #!/usr/bin/env python
 """Smoke run of the PyTorch port on one NVIDIA H100: builds the hand-written
-kernel, holds it against its plain PyTorch version, serves requests through
-the flagship half-engine ``Predictor`` at full width, holds the card against
-the CPU, and times the flagship forward.
+kernels, holds each against its plain PyTorch version, serves requests
+through the flagship half-engine ``Predictor`` at full width, holds the card
+against the CPU, times the flagship forward, trains the DAE at full width in
+the three corruption regimes, and serves the DAE it trained.
 
 Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-Phases (one line each; any failure raises and the exit code is non-zero):
+Phases:
  1. device   -- a CUDA card is required (there is no CPU fallback)
- 2. build    -- nvcc builds csrc/refine_tail.cu for sm_90a
+ 2. build    -- nvcc builds csrc/refine_tail.cu and csrc/corruption.cu for
+                sm_90a, both at once
  3. kernel   -- refine_tail against refine_tail_reference at the main
                 path's shapes, bf16 and f32, with CUDA-event times
  4. serve    -- Predictor(engine="half") answers 3 requests (3, 8, 13
@@ -19,28 +21,52 @@ Phases (one line each; any failure raises and the exit code is non-zero):
                 must be (K+1) x chunks
  5. parity   -- one image in f32 on the card (TF32 off) against f32 on the CPU
  6. timing   -- flagship forward images/s at batch 8 and 32
-The line before the last is the kernel report (JSON), the last line the
-device report (JSON).
+ 7. corrupt  -- K1 (corrupt_onehot) and K2 (corrupt_probs) against their
+                plain versions at the training shapes, sigma 0 and 1, with
+                CUDA-event times beside a plain fill of the same output
+ 8. train    -- train_dae at full width (FCN-8 fc 4096, DAE stem 1 / depth 3,
+                batch 32 of 360x480 frames cropped to 224 with flips, bf16,
+                eval on full frames) in the gt, natural and mix regimes; the
+                launch counts of K1/K2 must match the batches each regime
+                sends through them; train images/s and the step's split
+ 9. tparity  -- one f32 train step on the card (TF32 off) against the CPU
+10. tserve   -- Predictor.from_npz serves the best_dae.npz phase 8 wrote
+Every phase asserts; any failure raises and the exit code is non-zero. The
+line before the last is the kernel report (JSON), the last line the device
+report (JSON).
 """
 
 from __future__ import annotations
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID
 from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
+from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
 from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn
 from iterative_inference_segm_tpu_torch.inference.predictor import Predictor
 from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, init_dae
 from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
 from iterative_inference_segm_tpu_torch.ops import _build
+from iterative_inference_segm_tpu_torch.ops import corruption_kernel as ck
+from iterative_inference_segm_tpu_torch.ops.conv import conv2d
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail, refine_tail_reference
+from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer
+from iterative_inference_segm_tpu_torch.train.train_dae import (
+    draw_step_randomness,
+    make_dae_train_step,
+    train_dae,
+)
+from iterative_inference_segm_tpu_torch.utils.checkpoint import save_npz
 
 K_STEPS = 5
 EPS = 0.1
@@ -63,6 +89,36 @@ MIN_ARGMAX_AGREE = 0.999
 PARITY_TOL = 1e-4
 PARITY_MIN_ARGMAX_AGREE = 0.999
 
+# K1/K2 against their plain versions: the same hash, the same f32 formulas
+# and the same class order in the softmax sum; only CUDA's logf/cosf/expf
+# against PyTorch's (each within 2 ulps) differ, which moves an output by
+# ~1e-7.
+CORRUPT_TOL = 1e-6
+CORRUPT_SUM_TOL = 1e-5
+CORRUPT_MIN_ARGMAX_AGREE = 0.9999
+SIGMA = 1.0
+CROP = CAMVID.train_crop
+
+# The DAE training cell: batch 32 of full 360x480 frames cropped in-step to
+# 224x224 with flips, bf16 compute over f32 master weights, Adam 1e-3 with
+# 1e-4 coupled L2; eval on full frames.
+TRAIN_BATCH = 32
+TRAIN_EPOCHS = 3
+TRAIN_BATCHES = 4
+VAL_BATCHES = 2
+DAE_KW = dict(h_taps=("pool4",), dae_depth=3, dae_stem_pool=1, dae_tail="full",
+              dae_encoder="pool")
+
+# One f32 train step, card (cuDNN, TF32 off) against CPU, full width, batch
+# 2. The loss is a mean over ~10^5 pixels of a DAE fed by the frozen FCN,
+# whose convolutions sum up to 25088 terms in another order on each side
+# (~1e-6 relative per layer, as in phase 5): 1e-4 relative. Adam's first
+# moment after one step is 0.1 x (gradient + 1e-4 w); each gradient entry is
+# a sum over every pixel of the batch, taken in another order on each side,
+# of terms that partly cancel: 1e-3 of each leaf's largest entry.
+TRAIN_PARITY_LOSS_TOL = 1e-4
+TRAIN_PARITY_MOMENT_TOL = 1e-3
+
 
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
@@ -74,6 +130,36 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def clocks() -> str:
+    """The card's SM clock (now and its maximum), power draw and
+    temperature, read beside a timing."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log) -> str:
+    """'kernel<template args>: registers, spill stores/loads' per entry
+    function of an ``nvcc -Xptxas -v`` log (template args as mangled, e.g.
+    ``Lb1ELi16`` for <true, 16>)."""
+    out, entry, spill = [], "?", ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"\d+([A-Za-z][A-Za-z_]*_kernel)I(\w+?)EEEv", m.group(1))
+            entry = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[:40]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = f"spill {m.group(1)}/{m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{entry}: {m.group(1)} regs, {spill}")
+    return " | ".join(out)
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -240,8 +326,224 @@ def run_timing_phase(dev, fcn, dae, smi):
             ms_k0 = cuda_time_ms(lambda: fwd_k0(fcn, dae, x), iters=10)
         ips = batch * 1000.0 / ms
         phase("timing", f"flagship bf16 K={K_STEPS} batch {batch}: {ms:.2f} ms/batch, "
-              f"{ips:.1f} images/s; K=0 (FCN + rectification) {ms_k0:.2f} ms/batch; on {smi}")
+              f"{ips:.1f} images/s; K=0 (FCN + rectification) {ms_k0:.2f} ms/batch; on {smi}; "
+              f"clocks.sm, max, power, temp: {clocks()}")
     phase("timing", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+
+def _labels_with_void(shape, gen):
+    lab = torch.randint(0, N_CLASSES, shape, generator=gen, dtype=torch.int32)
+    void = torch.rand(shape, generator=gen) < 0.02
+    return torch.where(void, torch.full_like(lab, CAMVID.void_label), lab)
+
+
+def run_corrupt_phase(dev):
+    """K1 and K2 against their plain versions at the training shapes (the
+    train step's crop, and the eval step's full frames)."""
+    gen = torch.Generator().manual_seed(3)
+    report = {}
+    for shape in ((TRAIN_BATCH, *CROP), (BATCH, H, W)):
+        labels = _labels_with_void(shape, gen).to(dev)
+        probs = torch.softmax(torch.randn((*shape, N_CLASSES), generator=gen) * 3.0, -1).to(dev)
+        void = labels == CAMVID.void_label
+        for sigma in (0.0, SIGMA):
+            for name, fn, ref, src, kw in (
+                ("corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
+                 {"n_classes": N_CLASSES, "sigma": sigma}),
+                ("corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs,
+                 {"sigma": sigma}),
+            ):
+                seed = 0x9E3779B9
+                got = fn(src, seed, **kw)
+                want = ref(src, seed, **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                sum_err = (got.sum(-1) - 1.0).abs().max().item()
+                agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+                if not (err <= CORRUPT_TOL and sum_err <= CORRUPT_SUM_TOL
+                        and agree >= CORRUPT_MIN_ARGMAX_AGREE):
+                    raise AssertionError(f"{name} {shape} sigma={sigma}: max abs err {err:.3e}, "
+                                         f"row sums {sum_err:.3e}, argmax agree {agree:.6f}")
+                if name == "corrupt_onehot" and sigma == 0.0:
+                    rows = got[void]
+                    if not torch.equal(rows, torch.full_like(rows, 1.0 / N_CLASSES)):
+                        raise AssertionError("void rows at sigma 0 are not exactly uniform")
+                ms = cuda_time_ms(lambda: fn(src, seed, **kw), 20)
+                plain_ms = cuda_time_ms(lambda: ref(src, seed, **kw), 5)
+                out = torch.empty_like(got)
+                fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
+                key = (name, shape, sigma)
+                report[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                phase("corrupt", f"{name:14s} {tuple(got.shape)} sigma={sigma}: "
+                      f"max_abs_err={err:.3e} row_sum_err={sum_err:.1e} argmax_agree={agree:.6f} "
+                      f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"store_floor_ms={fill_ms:.4f} ({got.numel() * 4 / 1e6:.1f} MB)")
+    return report
+
+
+def synthetic_data():
+    def make(n, seed):
+        return list(synthetic_batches(cfg=CAMVID, batch_size=TRAIN_BATCH, num_batches=n, seed=seed))
+
+    return make(TRAIN_BATCHES, 0), make(VAL_BATCHES, 10_000)
+
+
+def run_train_phase(fcn, workdir):
+    """train_dae in each regime; returns the launch counts and the gt
+    regime's workdir."""
+    t0 = time.perf_counter()
+    train, val = synthetic_data()
+    phase("train", f"synthetic CamVid: {TRAIN_BATCHES} train + {VAL_BATCHES} val batches of "
+          f"{TRAIN_BATCH} x {H}x{W} in {time.perf_counter() - t0:.1f} s")
+    tcfg = TrainConfig(learning_rate=1e-3, weight_decay=1e-4, max_epochs=TRAIN_EPOCHS,
+                       patience=TRAIN_EPOCHS, batch_size=TRAIN_BATCH, seed=0,
+                       compute_dtype=torch.bfloat16)
+    batches = TRAIN_EPOCHS * (TRAIN_BATCHES + VAL_BATCHES)
+    launches = {"corrupt_onehot": 0, "corrupt_probs": 0}
+    torch.cuda.reset_peak_memory_stats()
+    for regime, from_gt in (("gt", True), ("natural", False), ("mix", 0.5)):
+        ck.corrupt_onehot.launches = 0
+        ck.corrupt_probs.launches = 0
+        t0 = time.perf_counter()
+        result = train_dae(
+            fcn_params=fcn, dataset=CAMVID, train_data=train, val_data=val, tcfg=tcfg,
+            sigma=SIGMA, from_gt=from_gt, workdir=str(workdir / regime), augment=True,
+            corruption_impl="kernel", **DAE_KW,
+        )
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        k1, k2 = ck.corrupt_onehot.launches, ck.corrupt_probs.launches
+        launches["corrupt_onehot"] += k1
+        launches["corrupt_probs"] += k2
+        hist = result["history"]
+        losses = [h["train_loss"] for h in hist]
+        if len(hist) != TRAIN_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"{regime}: history {hist}")
+        if not np.isfinite([h["val_loss"] for h in hist]).all():
+            raise AssertionError(f"{regime}: val loss not finite")
+        if regime == "gt" and not losses[-1] < losses[0]:
+            raise AssertionError(f"gt regime: train loss did not fall: {losses}")
+        want = {"gt": (batches, 0), "natural": (0, batches)}.get(regime)
+        if want is not None and (k1, k2) != want:
+            raise AssertionError(f"{regime}: K1/K2 launched {k1}/{k2} times; expected {want}")
+        # mix: one coin per batch sends it through exactly one of the two
+        if regime == "mix" and not (k1 + k2 == batches and k1 > 0 and k2 > 0):
+            raise AssertionError(f"mix: K1/K2 launched {k1}/{k2} times for {batches} batches")
+        phase("train", f"{regime:7s} from_gt={from_gt}: train_loss "
+              + " ".join(f"{v:.4f}" for v in losses)
+              + f" val_loss {hist[-1]['val_loss']:.4f} val_mIoU {hist[-1]['val_miou']:.4f}; "
+              f"K1/K2 launches {k1}/{k2} over {batches} batches; {secs:.1f} s wall "
+              f"(first calls included), last epoch {hist[-1]['train_images_per_sec']:.1f} images/s")
+    phase("train", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return launches, workdir / "gt"
+
+
+def run_train_timing(dev, fcn, smi):
+    """Train images/s at batch 32, crop 224, bf16, and the step's split."""
+    tcfg = TrainConfig(compute_dtype=torch.bfloat16)
+    dae = init_dae(torch.Generator().manual_seed(4), n_classes=N_CLASSES,
+                   h_specs={"pool4": DAE_H_CHANNELS["pool4"]}, depth=3, stem_pool=1, device=dev)
+    opt = make_optimizer(tcfg, dae)
+    train_step, _ = make_dae_train_step(CAMVID, tcfg, opt, h_taps=("pool4",), sigma=SIGMA,
+                                        from_gt=True, dae_depth=3, corruption_impl="kernel")
+    stages = train_step.stages
+    images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=TRAIN_BATCH, num_batches=1,
+                                            seed=5))
+    x, y = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+    rand = draw_step_randomness(torch.Generator().manual_seed(6), batch=TRAIN_BATCH, hw=(H, W),
+                                crop=CROP, p_gt=1.0)
+    step_ms = cuda_time_ms(lambda: train_step(dae, fcn, x, y, rand), iters=20)
+    xc, yc = stages.prepare(x, y, rand)
+    probs, h = stages.features(fcn, xc)
+    y_tilde = stages.corrupt(yc, probs, rand)
+
+    def dae_fwd_bwd():
+        opt.zero_grad(set_to_none=True)
+        stages.loss(dae, y_tilde, h, yc)[0].backward()
+
+    split = {
+        "crop+normalize": cuda_time_ms(lambda: stages.prepare(x, y, rand), iters=20),
+        "frozen FCN forward": cuda_time_ms(lambda: stages.features(fcn, xc), iters=20),
+        "corruption (K1)": cuda_time_ms(lambda: stages.corrupt(yc, probs, rand), iters=20),
+        "DAE forward+backward": cuda_time_ms(dae_fwd_bwd, iters=20),
+        "optimizer step": cuda_time_ms(opt.step, iters=20),
+    }
+    pool5 = torch.randn((TRAIN_BATCH, CROP[0] // 32, CROP[1] // 32, 512), device=dev,
+                        dtype=torch.bfloat16)
+    with torch.no_grad():
+        fc6_ms = cuda_time_ms(lambda: conv2d(pool5, fcn["fc6"]["w"].to(torch.bfloat16),
+                                             fcn["fc6"]["b"].to(torch.bfloat16)), iters=20)
+    ips = TRAIN_BATCH * 1000.0 / step_ms
+    phase("timing", f"DAE train step bf16 batch {TRAIN_BATCH} crop {CROP[0]}: {step_ms:.2f} ms/step, "
+          f"{ips:.1f} images/s; on {smi}; clocks.sm, max, power, temp: {clocks()}")
+    for name, ms in split.items():
+        phase("timing", f"  {name:22s} {ms:8.3f} ms  {100.0 * ms / step_ms:5.1f}% of the step")
+    phase("timing", f"  fc6 (7x7 conv on the {CROP[0] // 32}x{CROP[1] // 32} pool5 map) alone "
+          f"{fc6_ms:.3f} ms, {100.0 * fc6_ms / split['frozen FCN forward']:.1f}% of the FCN forward")
+    return step_ms, ips
+
+
+def run_train_parity(fcn):
+    """One f32 train step at full width, batch 2, card against CPU."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=2, num_batches=1, seed=7))
+    rand = draw_step_randomness(torch.Generator().manual_seed(8), batch=2, hw=(H, W), crop=CROP,
+                                p_gt=1.0)
+    tcfg = TrainConfig()
+    runs = {}
+    for where in ("cuda", "cpu"):
+        fcn_w = fcn if where == "cuda" else {k: {kk: t.cpu() for kk, t in v.items()}
+                                             for k, v in fcn.items()}
+        dae = init_dae(torch.Generator().manual_seed(9), n_classes=N_CLASSES,
+                       h_specs={"pool4": DAE_H_CHANNELS["pool4"]}, depth=3, stem_pool=1,
+                       device=where)
+        opt = make_optimizer(tcfg, dae)
+        train_step, _ = make_dae_train_step(CAMVID, tcfg, opt, h_taps=("pool4",), sigma=SIGMA,
+                                            from_gt=True, dae_depth=3, corruption_impl="kernel")
+        t0 = time.perf_counter()
+        loss = float(train_step(dae, fcn_w, torch.from_numpy(images).to(where),
+                                torch.from_numpy(labels).to(where), rand))
+        secs = time.perf_counter() - t0
+        moments = {f"{k}/{kk}": opt.state[t]["exp_avg"].cpu() for k, v in dae.items()
+                   for kk, t in v.items()}
+        runs[where] = (loss, moments, secs)
+    (lg, mg, sg), (lc, mc, sc) = runs["cuda"], runs["cpu"]
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst, worst_name = 0.0, ""
+    for name, m in mc.items():
+        rel = (mg[name] - m).abs().max().item() / max(m.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, name
+    phase("tparity", f"f32 train step, batch 2, crop {CROP[0]}: loss card {lg:.7f} CPU {lc:.7f} "
+          f"(rel {loss_rel:.2e}); Adam exp_avg worst rel {worst:.2e} ({worst_name}); "
+          f"card {sg:.2f} s, CPU {sc:.1f} s")
+    if not (loss_rel <= TRAIN_PARITY_LOSS_TOL and worst <= TRAIN_PARITY_MOMENT_TOL):
+        raise AssertionError(f"train step card vs CPU beyond {TRAIN_PARITY_LOSS_TOL} / "
+                             f"{TRAIN_PARITY_MOMENT_TOL}")
+
+
+def run_train_serve_phase(dev, fcn, gt_workdir):
+    """Serve the DAE that phase 8 trained, loaded from its best_dae.npz."""
+    fcn_npz = gt_workdir / "fcn8.npz"
+    save_npz(fcn_npz, fcn)
+    pred = Predictor.from_npz(
+        fcn_npz, gt_workdir / "best_dae.npz", device=dev, dae_depth=3, dae_stem_pool=1,
+        engine="half", batch_size=BATCH, compute_dtype=torch.bfloat16, num_steps=K_STEPS, eps=EPS,
+    )
+    images = np.random.default_rng(3).random((3, H, W, 3), dtype=np.float32)
+    refine_tail.launches = 0
+    labels, probs = pred.predict(images, return_probs=True)
+    torch.cuda.synchronize()
+    if labels.shape != (3, H, W) or labels.dtype != np.int32:
+        raise AssertionError(f"labels {labels.shape} {labels.dtype}")
+    if not np.isfinite(probs).all() or float(np.abs(probs.sum(-1) - 1.0).max()) > 1e-2:
+        raise AssertionError("served probabilities not finite or off the simplex")
+    if refine_tail.launches != K_STEPS + 1:
+        raise AssertionError(f"refine_tail launched {refine_tail.launches} times")
+    phase("tserve", f"best_dae.npz from the gt regime served 3 images at {H}x{W}: labels "
+          f"{labels.shape} int32, classes used {len(np.unique(labels))}, refine_tail launches "
+          f"{refine_tail.launches}")
 
 
 def main() -> int:
@@ -250,19 +552,23 @@ def main() -> int:
         return 1
 
     dev = torch.device("cuda", 0)
-    name = torch.cuda.get_device_name(0)
+    kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
     smi = nvidia_smi()
-    phase("device", f"{name} capability {cap} torch {torch.__version__} cuda {torch.version.cuda}")
+    phase("device", f"{kind} capability {cap} torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
     if cap != (9, 0):
         raise AssertionError(f"the kernels are built for sm_90a; this card is {cap}")
 
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    lib = _build.build("refine_tail")
-    _build.load("refine_tail")
-    phase("build", f"nvcc sm_90a {lib.name} in {time.perf_counter() - t0:.1f} s; "
-          f"ptxas: {' | '.join(l.strip() for l in lib.with_suffix('.log').read_text().splitlines() if 'registers' in l)}")
+    sources = ("refine_tail", "corruption")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = dict(zip(sources, pool.map(_build.build, sources)))
+    for src, lib in libs.items():
+        _build.load(src)
+        phase("build", f"nvcc sm_90a {lib.name}; ptxas: {ptxas_summary(lib.with_suffix('.log'))}")
+    phase("build", f"{len(libs)} kernels built in {time.perf_counter() - t0:.1f} s")
 
     worst, kreport = run_kernel_phase(dev)
     fcn, dae = full_width_params(dev)
@@ -270,16 +576,36 @@ def main() -> int:
     run_parity_phase(fcn, dae)
     run_timing_phase(dev, fcn, dae, smi)
 
+    creport = run_corrupt_phase(dev)
+    workdir = _build.BUILD_DIR / "chip_smoke_train"
+    shutil.rmtree(workdir, ignore_errors=True)
+    train_launches, gt_workdir = run_train_phase(fcn, workdir)
+    run_train_timing(dev, fcn, smi)
+    run_train_parity(fcn)
+    run_train_serve_phase(dev, fcn, gt_workdir)
+    shutil.rmtree(workdir)
+
     step = kreport["step_bf16"]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "refine_tail", "route": "cuda",
         "source": "iterative_inference_segm_tpu_torch/csrc/refine_tail.cu",
         "replaces": "tools/tail_kernel_proto.py:41",
         "launches": launches, "max_abs_err": worst,
         "ms": step["ms"], "plain_ms": step["plain_ms"],
-    }]}), flush=True)
+    }]
+    for kname, line in (("corrupt_onehot", 59), ("corrupt_probs", 100)):
+        main_path = creport[(kname, (TRAIN_BATCH, *CROP), SIGMA)]
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "iterative_inference_segm_tpu_torch/csrc/corruption.cu",
+            "replaces": f"iterative_inference_segm_tpu/ops/pallas/corruption_kernel.py:{line}",
+            "launches": train_launches[kname],
+            "max_abs_err": max(r["max_abs_err"] for k, r in creport.items() if k[0] == kname),
+            "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}), flush=True)
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

@@ -1,1 +1,1 @@
-"""Dataset constants and preprocessing needed by the serving path."""
+"""Dataset constants, synthetic scenes and on-device preprocessing."""

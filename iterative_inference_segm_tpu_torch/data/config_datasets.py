@@ -1,9 +1,10 @@
-"""Per-dataset constants the serving path needs (class count, void label,
-normalization statistics, input channels).
+"""Per-dataset constants: class count, void label, canonical frame size,
+training crop, input channels and normalization statistics.
 
-A copy of the serving fields of ``iterative_inference_segm_tpu.data.
-config_datasets`` (the port may not import the JAX package); the values must
-stay equal — ``tests/test_torch_flagship.py`` checks them.
+A copy of the numeric fields of ``iterative_inference_segm_tpu.data.
+config_datasets`` (the port may not import the JAX package; class names and
+palettes are visualization data and are not copied). The values must stay
+equal — ``tests/test_torch_flagship.py`` checks them.
 """
 
 from __future__ import annotations
@@ -16,7 +17,10 @@ class DatasetConfig:
     name: str
     n_classes: int  # non-void classes
     void_label: int  # label value marking void (== n_classes by convention)
+    height: int
+    width: int
     in_channels: int
+    train_crop: tuple[int, int]
     mean: tuple[float, ...]
     std: tuple[float, ...]
 
@@ -26,7 +30,38 @@ CAMVID = DatasetConfig(
     name="camvid",
     n_classes=11,
     void_label=11,
+    height=360,
+    width=480,
     in_channels=3,
+    train_crop=(224, 224),
     mean=(0.39068785, 0.40521392, 0.41434407),
     std=(0.29652068, 0.30514979, 0.30080369),
 )
+
+# EM membrane stacks (ISBI 2012-style): 2 classes, one input channel.
+EM = DatasetConfig(
+    name="em",
+    n_classes=2,
+    void_label=2,
+    height=512,
+    width=512,
+    in_channels=1,
+    train_crop=(256, 256),
+    mean=(0.5,),
+    std=(0.25,),
+)
+
+# CVC Polyps endoscopy: binary segmentation.
+POLYPS = DatasetConfig(
+    name="polyps",
+    n_classes=2,
+    void_label=2,
+    height=384,
+    width=288,
+    in_channels=3,
+    train_crop=(224, 224),
+    mean=(0.5, 0.5, 0.5),
+    std=(0.25, 0.25, 0.25),
+)
+
+DATASET_CONFIGS = {c.name: c for c in (CAMVID, EM, POLYPS)}

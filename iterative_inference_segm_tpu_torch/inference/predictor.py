@@ -19,18 +19,13 @@ import torch
 from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID, DatasetConfig
 from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
 from iterative_inference_segm_tpu_torch.inference.fused import halfres_refine
-from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, init_dae
 from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
+from iterative_inference_segm_tpu_torch.models.registry import (
+    expected_meta,
+    init_score_template,
+    validate_arch,
+)
 from iterative_inference_segm_tpu_torch.utils.checkpoint import check_npz_meta, load_npz
-
-SCORE_ARCHS = ("dae", "mirror", "contextmod")
-
-
-def _check_arch(arch: str) -> None:
-    if arch not in SCORE_ARCHS:
-        raise ValueError(f"unknown score-network arch {arch!r}; expected one of {SCORE_ARCHS}")
-    if arch != "dae":
-        raise NotImplementedError(f"dae_arch={arch!r} is not ported yet (ROADMAP.md, Queue 1)")
 
 
 class Predictor:
@@ -64,7 +59,7 @@ class Predictor:
             raise NotImplementedError("engine='general' is not ported yet (ROADMAP.md, Queue 1)")
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError("mesh / pp_mesh serving is not ported yet (ROADMAP.md)")
-        _check_arch(dae_arch)
+        validate_arch(dae_arch)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1; got {batch_size}")
         self.cfg = dataset
@@ -105,7 +100,7 @@ class Predictor:
         """Load flat-npz exports (JAX layout, from either package). The DAE's
         shape-invisible flags (encoder, depth, stem_pool, tail, widths) are
         checked against the checkpoint's stamped metadata first."""
-        _check_arch(dae_arch)
+        validate_arch(dae_arch)
         gen = torch.Generator().manual_seed(0)
         fcn_t = init_fcn8(
             gen, n_classes=dataset.n_classes, in_channels=dataset.in_channels,
@@ -114,17 +109,15 @@ class Predictor:
         fcn = load_npz(fcn_npz, fcn_t)
         dae = None
         if dae_npz:
-            expect = {
-                "arch": "dae", "encoder": dae_encoder, "depth": dae_depth,
-                "stem_pool": dae_stem_pool, "tail": dae_tail,
-                **({"widths": tuple(dae_widths)} if dae_widths else {}),
-            }
+            expect = expected_meta(
+                dae_arch, depth=dae_depth, stem_pool=dae_stem_pool, tail=dae_tail,
+                widths=dae_widths, encoder=dae_encoder,
+            )
             check_npz_meta(dae_npz, expect, context=f"Predictor.from_npz({dae_npz})")
-            dae_t = init_dae(
-                gen, n_classes=dataset.n_classes,
-                h_specs={name: DAE_H_CHANNELS[name] for name in h_taps},
-                depth=dae_depth, stem_pool=dae_stem_pool, tail=dae_tail,
-                **({"widths": tuple(dae_widths)} if dae_widths else {}), device=device,
+            dae_t = init_score_template(
+                dae_arch, gen, n_classes=dataset.n_classes, h_taps=tuple(h_taps),
+                depth=dae_depth, stem_pool=dae_stem_pool, tail=dae_tail, widths=dae_widths,
+                device=device,
             )
             dae = load_npz(dae_npz, dae_t)
         return cls(

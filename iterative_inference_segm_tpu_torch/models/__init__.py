@@ -1,1 +1,2 @@
-"""FCN-8 segmenter and the conditional DAE score network (port)."""
+"""FCN-8 segmenter, the conditional DAE score network and the score-network
+registry (port)."""

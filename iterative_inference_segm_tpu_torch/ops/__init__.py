@@ -1,2 +1,2 @@
-"""Convolution/pooling ops (cuDNN through ``torch.nn.functional``) and the
-hand-written refinement-tail kernel."""
+"""Convolution/pooling ops (cuDNN through ``torch.nn.functional``), losses,
+metrics, the corruption ops and the hand-written kernels."""

@@ -1,1 +1,2 @@
-"""Checkpoint (flat npz) and JAX-parameter bridge."""
+"""Checkpoints (flat npz, training state), the JAX-parameter bridge and
+experiment logging."""

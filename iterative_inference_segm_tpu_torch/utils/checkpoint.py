@@ -1,18 +1,24 @@
-"""Flat-npz checkpoints, compatible with the JAX package's.
+"""Checkpoints: flat-npz weights compatible with the JAX package's, and
+resumable training state.
 
 The npz half of ``iterative_inference_segm_tpu.utils.checkpoint``. Files hold
 the JAX layout (keys like ``conv1_1/w``, HWIO kernels, ``__meta__/`` entries
 for architecture flags), so an npz saved by either package loads in the
 other. ``save_npz`` / ``load_npz`` take and return the port's parameter trees;
-``utils/jax_bridge.py`` converts the layouts.
+``utils/jax_bridge.py`` converts the layouts. The training-state half
+(``save_checkpoint`` / ``restore_checkpoint`` / ``latest_step``) replaces
+the JAX package's orbax directories with one ``torch.save`` file per step;
+the two formats are not interchangeable.
 """
 
 from __future__ import annotations
 
 import os
 import warnings
+from pathlib import Path
 
 import numpy as np
+import torch
 
 from iterative_inference_segm_tpu_torch.utils.jax_bridge import (
     params_from_jax,
@@ -141,3 +147,43 @@ def load_npz(path: str | os.PathLike, template: dict) -> dict:
                 )
             out[layer][leaf] = got[leaf].to(device=ref.device, dtype=ref.dtype)
     return out
+
+
+# Resumable training state (the trainer's params, optimizer state_dict and
+# generator state) as one ``torch.save`` file under ``directory/<step>/``.
+_STATE_FILE = "state.pt"
+
+
+def save_checkpoint(directory: str | os.PathLike, step: int, state: dict) -> None:
+    """Write ``state`` (tensors, numbers, lists and dicts) at
+    ``directory/<step>/state.pt``, synchronously; the file appears whole
+    (written beside it, then renamed) or not at all."""
+    path = Path(directory) / str(step)
+    path.mkdir(parents=True, exist_ok=True)
+    tmp = path / f"{_STATE_FILE}.{os.getpid()}.tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path / _STATE_FILE)
+
+
+def wait_for_checkpoints() -> None:
+    """Saving is synchronous here, so nothing is ever pending; kept so the
+    trainers read as the JAX package's do."""
+
+
+def restore_checkpoint(directory: str | os.PathLike, step: int) -> dict:
+    """Read back what ``save_checkpoint`` wrote at ``step``, on the CPU."""
+    return torch.load(Path(directory) / str(step) / _STATE_FILE, map_location="cpu",
+                      weights_only=True)
+
+
+def latest_step(directory: str | os.PathLike) -> int | None:
+    """Highest numbered checkpoint under ``directory`` holding a complete
+    state file, or None."""
+    d = Path(directory)
+    if not d.is_dir():
+        return None
+    steps = [
+        int(p.name) for p in d.iterdir()
+        if p.is_dir() and p.name.isdigit() and (p / _STATE_FILE).is_file()
+    ]
+    return max(steps) if steps else None

@@ -67,8 +67,11 @@ def _images(n=2, seed=2):
 
 
 def test_dataset_config_and_normalize_match_jax():
-    for f in ("name", "n_classes", "void_label", "in_channels", "mean", "std"):
-        assert getattr(tcfg.CAMVID, f) == getattr(jcfg.CAMVID, f), f
+    assert set(tcfg.DATASET_CONFIGS) == set(jcfg.DATASET_CONFIGS)
+    for name, cfg in tcfg.DATASET_CONFIGS.items():
+        for f in dataclasses.fields(cfg):
+            assert getattr(cfg, f.name) == getattr(jcfg.DATASET_CONFIGS[name], f.name), (name, f.name)
+    assert tcfg.CAMVID.train_crop == (224, 224) and (tcfg.CAMVID.height, tcfg.CAMVID.width) == (360, 480)
     x = _images() * 255.0
     for scale in (1.0, 255.0):
         want = np.asarray(j_normalize(jnp.asarray(x), jcfg.CAMVID, input_scale=scale))
