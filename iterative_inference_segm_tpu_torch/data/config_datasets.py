@@ -1,10 +1,10 @@
 """Per-dataset constants: class count, void label, canonical frame size,
-training crop, input channels and normalization statistics.
+training crop, input channels, normalization statistics and class names.
 
-A copy of the numeric fields of ``iterative_inference_segm_tpu.data.
-config_datasets`` (the port may not import the JAX package; class names and
-palettes are visualization data and are not copied). The values must stay
-equal — ``tests/test_torch_flagship.py`` checks them.
+A copy of the fields of ``iterative_inference_segm_tpu.data.config_datasets``
+but the palettes (the port may not import the JAX package; the palettes are
+visualization data). The values must stay equal —
+``tests/test_torch_flagship.py`` checks them.
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ class DatasetConfig:
     train_crop: tuple[int, int]
     mean: tuple[float, ...]
     std: tuple[float, ...]
+    class_names: tuple[str, ...]
 
 
 # CamVid: 11 semantic classes + void, 360x480 road scenes.
@@ -36,6 +37,10 @@ CAMVID = DatasetConfig(
     train_crop=(224, 224),
     mean=(0.39068785, 0.40521392, 0.41434407),
     std=(0.29652068, 0.30514979, 0.30080369),
+    class_names=(
+        "sky", "building", "column_pole", "road", "sidewalk", "tree",
+        "sign", "fence", "car", "pedestrian", "bicyclist",
+    ),
 )
 
 # EM membrane stacks (ISBI 2012-style): 2 classes, one input channel.
@@ -49,6 +54,7 @@ EM = DatasetConfig(
     train_crop=(256, 256),
     mean=(0.5,),
     std=(0.25,),
+    class_names=("membrane", "non_membrane"),
 )
 
 # CVC Polyps endoscopy: binary segmentation.
@@ -62,6 +68,7 @@ POLYPS = DatasetConfig(
     train_crop=(224, 224),
     mean=(0.5, 0.5, 0.5),
     std=(0.25, 0.25, 0.25),
+    class_names=("background", "polyp"),
 )
 
 DATASET_CONFIGS = {c.name: c for c in (CAMVID, EM, POLYPS)}

@@ -9,8 +9,8 @@ stem scale (/2 for stem_pool=1, the "half" engine; /4 for stem_pool=2, the
     x_{k+1} = blend(x_k, softmax(core(x_k) + si_h(x_k)), eps)
     y_K     = blend(y_0, softmax(up(core(x_K)) + si(y_0)), eps)
 
-``lax.scan`` becomes a Python loop of K steps. Every softmax + blend on these
-paths (K per-step ones and the rectification's, which also emits the argmax
+``lax.scan`` becomes a Python loop of K steps. Every score-mode softmax +
+blend (K per-step ones and the rectification's, which also emits the argmax
 labels) runs in ``ops.refine_tail``: the per-step crop + add of the two
 convolution outputs, the softmax, the blend and the argmax are one pass of
 the hand-written kernel on a CUDA tensor. The convolutions stay on cuDNN.
@@ -24,8 +24,14 @@ measured on the CPU with torch's bf16 arithmetic over 10^6 random C=11
 pixels: mean |diff| 3.8e-5, 16% of values differ, argmax agreement
 99.986%. The bf16 tests tolerate this.
 
-Not ported here: energy mode, the 'sep' tail and the phase-major ``fused``
-engine raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+Both tails ('full', and the separable 'sep' whose per-step and
+rectification logits reach the kernel whole) and both update rules: score
+steps go through the kernel; energy steps differentiate ``0.5 * ||x -
+r(x)||^2`` through the denoiser with ``torch.autograd.grad`` in plain
+PyTorch and launch no kernel. Energy mode needs autograd, so it runs under
+``torch.no_grad`` (it enables grad locally), never ``torch.inference_mode``.
+Folding stays score-mode and 'full'-tail only. The phase-major ``fused``
+engine is not ported (ROADMAP.md, "Not ported").
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from iterative_inference_segm_tpu_torch.models.dae import (
     dae_core,
+    dae_septail_logits,
     dae_stem_pool_of,
     dae_tail_of,
     precompute_bottleneck_h,
@@ -43,35 +50,70 @@ from iterative_inference_segm_tpu_torch.models.dae import (
 from iterative_inference_segm_tpu_torch.ops.conv import (
     avg_pool,
     conv2d,
+    conv2d_depthwise,
     conv_transpose2d,
     crop_to,
 )
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail
 
 
-def _require_full_tail(params: dict) -> None:
-    if dae_tail_of(params) == "sep":
-        raise NotImplementedError("tail='sep' is not ported yet (ROADMAP.md, Queue 1)")
-
-
-def _check_mode(mode: str) -> None:
-    if mode == "energy":
-        raise NotImplementedError("energy mode is not ported yet (ROADMAP.md, Queue 1)")
-    if mode != "score":
+def check_mode(mode: str) -> None:
+    if mode not in ("score", "energy"):
         raise ValueError(f"unknown mode {mode!r}; expected 'score' or 'energy'")
 
 
+def energy_gradient(denoise: Callable[[torch.Tensor], torch.Tensor], y: torch.Tensor) -> torch.Tensor:
+    """``d/dy 0.5 * ||y - denoise(y)||^2`` by ``torch.autograd.grad`` through
+    the denoiser (the JAX package's ``jax.grad`` of the same energy). Runs
+    with grad enabled locally; under ``torch.inference_mode`` autograd cannot
+    run, so that raises."""
+    if torch.is_inference_mode_enabled():
+        raise RuntimeError(
+            "energy mode differentiates through the DAE: run it under torch.no_grad(), "
+            "not torch.inference_mode()"
+        )
+    with torch.enable_grad():
+        yy = y.detach().requires_grad_(True)
+        energy = 0.5 * torch.sum(torch.square(yy - denoise(yy)))
+        (g,) = torch.autograd.grad(energy, yy)
+    return g
+
+
+def no_autograd(mode: str):
+    """The context a refinement runs in: ``torch.inference_mode`` for score
+    mode; ``torch.no_grad`` for energy mode, whose gradient steps enable
+    autograd locally (inference tensors cannot enter autograd)."""
+    check_mode(mode)
+    return torch.no_grad() if mode == "energy" else torch.inference_mode()
+
+
 def half_logits(params: dict, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Pooled-scale tail logits ``s + score_input(x)``; ``s`` = dae_core(x)."""
-    _require_full_tail(params)
+    """Pooled-scale tail logits; ``s`` = dae_core(x). 'full': ``s +
+    score_input(x)``; 'sep': ``mix(s + dw3x3(x))``."""
+    if dae_tail_of(params) == "sep":
+        d = conv2d_depthwise(x, params["score_input_dw"]["w"])
+        p = params["mix"]
+        return conv2d(s + d, p["w"], p["b"], padding="SAME")
     p = params["score_input"]
     return s + conv2d(x, p["w"], p["b"], padding="SAME")
 
 
+def _half_step_terms(params: dict, x: torch.Tensor, s: torch.Tensor):
+    """``(u, v)`` with ``half_logits = u + v`` for the kernel: the 'full'
+    tail's two addends, or the 'sep' tail's whole logits and no ``v``."""
+    if dae_tail_of(params) == "sep":
+        return half_logits(params, x, s), None
+    p = params["score_input"]
+    return s, conv2d(x, p["w"], p["b"], padding="SAME")
+
+
 def _full_tail_terms(params: dict, s_k: torch.Tensor, y: torch.Tensor):
-    """``(u, v)`` with ``full_logits = crop_to(u, H, W) + v``: ``u`` the
-    uncropped ``up_stem`` deconv chain of ``s_k``, ``v`` score_input on y."""
-    _require_full_tail(params)
+    """``(u, v)`` with ``full_logits = crop_to(u, H, W) + v``: for the 'full'
+    tail ``u`` the uncropped ``up_stem`` deconv chain of ``s_k`` and ``v``
+    score_input on y; for the 'sep' tail (the channel mix comes after the
+    crop and add) ``u`` the whole logits and no ``v``."""
+    if dae_tail_of(params) == "sep":
+        return dae_septail_logits(params, s_k, y.to(s_k.dtype)), None
     u = s_k
     for j in range(dae_stem_pool_of(params)):
         u = conv_transpose2d(u, params[f"up_stem{j + 1}"]["w"], stride=2)
@@ -81,9 +123,11 @@ def _full_tail_terms(params: dict, s_k: torch.Tensor, y: torch.Tensor):
 
 def full_logits(params: dict, s_k: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Full-resolution rectification logits: the DAE's stem tail applied
-    once (``up_stem`` chain back to /1 + score_input on y)."""
+    once (``up_stem`` chain back to /1 + score_input on y, or the 'sep'
+    tail)."""
     u, v = _full_tail_terms(params, s_k, y)
-    return crop_to(u, int(y.shape[1]), int(y.shape[2])) + v
+    u = crop_to(u, int(y.shape[1]), int(y.shape[2]))
+    return u if v is None else u + v
 
 
 def fold_half_tail(params: dict, *, encoder: str = "pool") -> dict:
@@ -160,11 +204,53 @@ def _pooled_carry(params: dict, y0: torch.Tensor, state_dtype):
     return sp, state_dtype, x0
 
 
-def _rectify(params, s_k, y0, eps, state_dtype, with_labels):
-    """The one full-resolution step: kernel over ``full_logits``' terms."""
+def _half_denoise(params: dict, core_fn: Callable, x: torch.Tensor, state_dtype) -> torch.Tensor:
+    """The pooled engine's per-step denoiser ``r(x) = softmax(core(x) +
+    tail_h(x))``, in plain PyTorch (differentiable)."""
+    s = core_fn(x).to(state_dtype)
+    return torch.softmax(half_logits(params, x, s), -1)
+
+
+def half_step_gradient(
+    params: dict,
+    core_fn: Callable,
+    x: torch.Tensor,
+    *,
+    mode: str,
+    state_dtype,
+) -> torch.Tensor:
+    """Refinement gradient at the pooled scale, in plain PyTorch: ``x -
+    r(x)`` ('score') or ``d/dx 0.5 * ||x - r(x)||^2`` through the pooled
+    denoiser ('energy'). The engine's score steps take the kernel instead."""
+    check_mode(mode)
+    if mode == "score":
+        return x - _half_denoise(params, core_fn, x, state_dtype)
+    return energy_gradient(lambda xx: _half_denoise(params, core_fn, xx, state_dtype), x)
+
+
+def full_rect_gradient(params: dict, s_k: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
+    """Gradient of the one full-resolution rectification step; ``s_k`` is a
+    constant of it (energy mode carries the tail's Jacobian only)."""
+    check_mode(mode)
+
+    def denoise(yy):
+        return torch.softmax(full_logits(params, s_k, yy), -1)
+
+    if mode == "score":
+        return y - denoise(y)
+    return energy_gradient(denoise, y)
+
+
+def _rectify(params, s_k, y0, eps, state_dtype, with_labels, mode="score"):
+    """The one full-resolution step: in score mode the kernel over
+    ``full_logits``' terms; in energy mode the plain gradient step."""
     y0s = y0.to(state_dtype)
-    u, v = _full_tail_terms(params, s_k.to(state_dtype), y0s)
-    return refine_tail(u, y0s, eps, v=v, with_labels=with_labels)
+    s_k = s_k.to(state_dtype)
+    if mode == "score":
+        u, v = _full_tail_terms(params, s_k, y0s)
+        return refine_tail(u, y0s, eps, v=v, with_labels=with_labels)
+    y = y0s - eps * full_rect_gradient(params, s_k, y0s, mode=mode)
+    return (y, torch.argmax(y, dim=-1).to(torch.int32)) if with_labels else y
 
 
 def halfres_refinement_scan(
@@ -178,17 +264,19 @@ def halfres_refinement_scan(
     mode: str = "score",
     with_labels: bool = False,
 ):
-    """K score steps on the pooled class map + one full-res rectification
-    (unfolded tail). Returns ``y_K`` at ``state_dtype``, or ``(y_K,
-    labels)`` with ``with_labels``. Score mode only."""
-    _check_mode(mode)
-    _require_full_tail(params)
+    """K steps on the pooled class map + one full-res rectification
+    (unfolded tail, either tail). Returns ``y_K`` at ``state_dtype``, or
+    ``(y_K, labels)`` with ``with_labels``. Score steps launch the kernel;
+    energy steps are ``x - eps * grad`` in plain PyTorch."""
+    check_mode(mode)
     _, state_dtype, x = _pooled_carry(params, y0, state_dtype)
-    si = params["score_input"]
     for _ in range(num_steps):
-        s = core_fn(x).to(state_dtype)
-        x = refine_tail(s, x, eps, v=conv2d(x, si["w"], si["b"], padding="SAME"))
-    return _rectify(params, core_fn(x), y0, eps, state_dtype, with_labels)
+        if mode == "score":
+            u, v = _half_step_terms(params, x, core_fn(x).to(state_dtype))
+            x = refine_tail(u, x, eps, v=v)
+        else:
+            x = x - eps * half_step_gradient(params, core_fn, x, mode=mode, state_dtype=state_dtype)
+    return _rectify(params, core_fn(x), y0, eps, state_dtype, with_labels, mode)
 
 
 def halfres_refinement_scan_folded(
@@ -218,6 +306,16 @@ def halfres_refinement_scan_folded(
     return _rectify(params, s_k, y0, eps, state_dtype, with_labels)
 
 
+def _resolve_fold(dae_params: dict, mode: str, fold_tail: bool | None) -> bool:
+    check_mode(mode)
+    legal = mode == "score" and dae_tail_of(dae_params) == "full"
+    if fold_tail is None:
+        return legal
+    if fold_tail and not legal:
+        raise ValueError("fold_tail requires score mode and tail='full'")
+    return fold_tail
+
+
 def halfres_refine(
     dae_params: dict,
     y0: torch.Tensor,
@@ -238,10 +336,7 @@ def halfres_refine(
     by ``flagship_forward_fn`` and ``Predictor``). ``in_hw`` is the full
     resolution; stem_pool comes from the param tree; ``fold_tail=None``
     folds whenever legal (score mode, 'full' tail)."""
-    _check_mode(mode)
-    _require_full_tail(dae_params)
-    if fold_tail is None:
-        fold_tail = True
+    fold_tail = _resolve_fold(dae_params, mode, fold_tail)
     sp = dae_stem_pool_of(dae_params)
     bh = precompute_bottleneck_h(
         dae_params, h, depth=depth, stem_pool=sp, in_hw=(in_hw[0] >> sp, in_hw[1] >> sp)
@@ -283,14 +378,16 @@ def flagship_forward_fn(
     state_dtype=None,
     encoder: str = "pool",
     mode: str = "score",
-    fold_tail: bool = True,
+    fold_tail: bool | None = None,
     with_labels: bool = False,
 ) -> Callable:
     """The flagship pipeline as one function: ``forward(fcn_params,
     dae_params, x) -> (y0, y_k)`` (``(y0, y_k, labels)`` with
     ``with_labels``): FCN-8 forward with the conditioning taps, K pooled-map
-    steps at the DAE's stem scale, one full-res rectification."""
-    _check_mode(mode)
+    steps at the DAE's stem scale, one full-res rectification.
+    ``fold_tail=None`` folds whenever legal (the JAX default, True, would
+    run energy mode as folded score steps)."""
+    check_mode(mode)
     if fcn_apply is None:
         from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply as fcn_apply
 
@@ -341,11 +438,12 @@ def make_half_refiner(
     forward = flagship_forward_fn(
         fcn_apply=fcn_apply, eps=eps, num_steps=num_steps, h_taps=h_taps, depth=depth,
         compute_dtype=compute_dtype, state_dtype=state_dtype, encoder=encoder, mode=mode,
-        fold_tail=True if fold_tail is None else fold_tail,
+        fold_tail=fold_tail,
     )
+    _resolve_fold(dae_params, mode, fold_tail)
 
-    @torch.inference_mode()
     def refine(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        return forward(fcn_params, dae_params, x)
+        with no_autograd(mode):
+            return forward(fcn_params, dae_params, x)
 
     return refine

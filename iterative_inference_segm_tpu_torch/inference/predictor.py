@@ -1,11 +1,18 @@
 """Serving-facing predictor: weights -> fixed-batch inference on one device.
 
-Port of ``iterative_inference_segm_tpu.inference.predictor`` for the half
-engine: FCN-8 + the pooled-scale DAE refinement (``inference.fused.
-halfres_refine``, folded tail), whose rectification kernel also emits the
-label map. Requests of any size are cut into chunks of ``batch_size``; the
-last chunk is zero-padded to the full batch, as the JAX version pads to its
-one compiled shape. Runs eagerly under ``torch.inference_mode``.
+Port of ``iterative_inference_segm_tpu.inference.predictor``: FCN-8 + the
+DAE refinement through either engine. ``engine='general'`` (the default, as
+in the JAX package) runs K full-resolution steps of ``inference.iterative.
+refinement_scan`` on the FCN's f32 softmax and returns f32 probabilities;
+``engine='half'`` runs the pooled-scale engine (``inference.fused.
+halfres_refine``, folded tail where legal), whose rectification kernel also
+emits the label map. Both serve score and energy modes. A DAE refines when
+one is given and ``num_steps > 0`` (the half engine always runs its one
+rectification); otherwise the FCN's f32 softmax is served unrefined.
+Requests of any size are cut into chunks of ``batch_size``; the last chunk
+is zero-padded to the full batch, as the JAX version pads to its one
+compiled shape. Runs eagerly under ``torch.inference_mode`` (``torch.
+no_grad`` in energy mode, whose steps need autograd).
 """
 
 from __future__ import annotations
@@ -18,11 +25,13 @@ import torch
 
 from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID, DatasetConfig
 from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
-from iterative_inference_segm_tpu_torch.inference.fused import halfres_refine
+from iterative_inference_segm_tpu_torch.inference.fused import check_mode, halfres_refine, no_autograd
+from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
 from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
 from iterative_inference_segm_tpu_torch.models.registry import (
     expected_meta,
     init_score_template,
+    score_logits_fn,
     validate_arch,
 )
 from iterative_inference_segm_tpu_torch.utils.checkpoint import check_npz_meta, load_npz
@@ -40,7 +49,7 @@ class Predictor:
         num_steps: int = 5,
         h_taps: tuple[str, ...] = ("pool4",),
         mode: str = "score",
-        engine: str = "half",
+        engine: str = "general",
         dae_arch: str = "dae",
         batch_size: int = 8,
         compute_dtype=torch.bfloat16,
@@ -52,14 +61,13 @@ class Predictor:
     ):
         """``device`` is where the params live and every chunk runs (no
         default, and no fallback: a CUDA device without a card raises).
-        ``engine='general'``, ``mesh`` and ``pp_mesh`` are not ported yet."""
+        ``mesh`` and ``pp_mesh`` are not ported yet."""
         if engine not in ("general", "half"):
             raise ValueError(f"unknown engine {engine!r}; expected 'general' or 'half'")
-        if engine == "general":
-            raise NotImplementedError("engine='general' is not ported yet (ROADMAP.md, Queue 1)")
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError("mesh / pp_mesh serving is not ported yet (ROADMAP.md)")
-        validate_arch(dae_arch)
+        self._score_logits = score_logits_fn(dae_arch)  # validates the arch name
+        check_mode(mode)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1; got {batch_size}")
         self.cfg = dataset
@@ -71,13 +79,14 @@ class Predictor:
         self._num_steps = num_steps
         self._h_taps = tuple(h_taps)
         self._mode = mode
+        self._engine = engine
         self._compute_dtype = compute_dtype
         self._normalize = normalize
         self._input_scale = input_scale
-        dae_kwargs = dict(dae_kwargs or {})
-        self._depth = dae_kwargs.get("depth", 4)
-        self._encoder = dae_kwargs.get("encoder", "pool")
-        self._refine = dae_params is not None
+        self._dae_kwargs = dict(dae_kwargs or {})
+        self._depth = self._dae_kwargs.get("depth", 4)
+        self._encoder = self._dae_kwargs.get("encoder", "pool")
+        self._refine = dae_params is not None and (num_steps > 0 or engine == "half")
 
     @classmethod
     def from_npz(
@@ -129,15 +138,24 @@ class Predictor:
         """One fixed-size chunk -> (labels int32, probs at the state dtype)."""
         if self._normalize:
             x = normalize_image(x, self.cfg, input_scale=self._input_scale)
-        # bf16 probs only when the half engine refines at bf16; an unrefined
-        # Predictor returns the f32 softmax baseline
+        # bf16 probs only when the half engine refines at bf16; the general
+        # engine and an unrefined Predictor start from the f32 softmax
+        half = self._refine and self._engine == "half"
         y0, h = fcn8_apply(
             self._fcn, x, return_features=self._h_taps if self._refine else (),
             compute_dtype=self._compute_dtype,
-            probs_dtype=self._compute_dtype if self._refine else torch.float32,
+            probs_dtype=self._compute_dtype if half else torch.float32,
         )
         if not self._refine:
             return torch.argmax(y0, dim=-1).to(torch.int32), y0
+        if not half:
+            y = refinement_scan(
+                lambda yy: self._score_logits(
+                    self._dae, yy, h, compute_dtype=self._compute_dtype, **self._dae_kwargs
+                ),
+                y0, eps=self._eps, num_steps=self._num_steps, mode=self._mode,
+            )
+            return torch.argmax(y, dim=-1).to(torch.int32), y
         y, labels = halfres_refine(
             self._dae, y0, h, (int(x.shape[1]), int(x.shape[2])),
             eps=self._eps, num_steps=self._num_steps, depth=self._depth,
@@ -152,7 +170,7 @@ class Predictor:
         n_classes) float32 probs], as numpy arrays."""
         images = np.asarray(images, np.float32)
         labels_out, probs_out = [], []
-        with torch.inference_mode():
+        with no_autograd(self._mode):
             for start in range(0, images.shape[0], self.batch_size):
                 chunk = images[start : start + self.batch_size]
                 got = chunk.shape[0]

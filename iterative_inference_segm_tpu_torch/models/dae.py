@@ -1,11 +1,13 @@
 """Conditional denoising autoencoder over segmentation probability maps (port).
 
-Port of ``iterative_inference_segm_tpu.models.dae`` for the 'full' tail:
-conv3x3 + ReLU encoder (ceil-mode max-pool or stride-2 conv per stage) with
-FCN-8 conditioning taps concatenated at their scale, an FCN-style decoder of
-1x1 score projections and k4/s2 class-width transposed convs, and for
-``stem_pool`` > 0 an avg-pooled stem with a dense 3x3 ``score_input`` fusion
-of the full-resolution map. The separable 'sep' tail is not ported yet.
+Port of ``iterative_inference_segm_tpu.models.dae``: conv3x3 + ReLU encoder
+(ceil-mode max-pool or stride-2 conv per stage) with FCN-8 conditioning taps
+concatenated at their scale, an FCN-style decoder of 1x1 score projections
+and k4/s2 class-width transposed convs, and for ``stem_pool`` > 0 an
+avg-pooled stem whose tail returns to full resolution either densely
+('full': k4/s2 ``up_stem`` deconvs + a 3x3 ``score_input``) or separably
+('sep', stem_pool=1 only: a depthwise k4/s2 upsampler + a depthwise 3x3 on
+the map + one 1x1 channel ``mix``).
 """
 
 from __future__ import annotations
@@ -18,9 +20,13 @@ import torch.nn.functional as F
 from iterative_inference_segm_tpu_torch.models.fcn8 import FCN8_FEATURE_CHANNELS
 from iterative_inference_segm_tpu_torch.ops.conv import (
     avg_pool,
+    bilinear_kernel_depthwise,
     conv2d,
+    conv2d_depthwise,
     conv_transpose2d,
+    conv_transpose2d_depthwise,
     crop_to,
+    delta_kernel_depthwise,
     init_conv,
     init_conv_transpose_bilinear,
     max_pool,
@@ -56,10 +62,10 @@ def init_dae(
 ) -> dict:
     """Random DAE params; same names, shapes (in port layouts) and checks as
     the JAX ``init_dae``."""
-    if tail == "sep":
-        raise NotImplementedError("tail='sep' is not ported yet (ROADMAP.md, Queue 1)")
-    if tail != "full":
+    if tail not in ("full", "sep"):
         raise ValueError(f"unknown tail {tail!r}; expected 'full' or 'sep'")
+    if tail == "sep" and stem_pool != 1:
+        raise ValueError("tail='sep' is defined for stem_pool=1 (the flagship layout)")
     if h_specs is None:
         h_specs = {"pool4": DAE_H_CHANNELS["pool4"]}
     for name in h_specs:
@@ -94,6 +100,14 @@ def init_dae(
         params[f"up{i + 1}"] = init_conv_transpose_bilinear(4, n_classes, n_classes, **kw)
         params[f"score_enc{i + 1}"] = init_conv(generator, 1, 1, widths[i], n_classes, **kw)
     params["out"] = init_conv(generator, 1, 1, n_classes, n_classes, **kw)
+    if tail == "sep":
+        # bilinear up + identity passthrough + identity mix: at init the tail
+        # computes logits = up(s) + y
+        params["up_stem_dw"] = {"w": bilinear_kernel_depthwise(4, n_classes, dtype).to(device)}
+        params["score_input_dw"] = {"w": delta_kernel_depthwise(3, n_classes, dtype).to(device)}
+        eye = torch.eye(n_classes, dtype=dtype, device=device)[:, :, None, None]
+        params["mix"] = {"w": eye, "b": torch.zeros((n_classes,), **kw)}
+        return params
     for j in range(stem_pool):
         params[f"up_stem{j + 1}"] = init_conv_transpose_bilinear(4, n_classes, n_classes, **kw)
     if stem_pool:
@@ -228,6 +242,51 @@ def dae_core(
     return conv2d(s, p["w"], p["b"], padding="SAME")
 
 
+def dae_septail_logits(params: dict, s: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Separable tail: ``logits = mix(crop(up_dw(s)) + dw3x3(y)) + b``; ``s``
+    the core's score map at /2, ``y`` the full-res map at s's dtype."""
+    u = conv_transpose2d_depthwise(s, params["up_stem_dw"]["w"], stride=2)
+    u = crop_to(u, int(y.shape[1]), int(y.shape[2]))
+    d = conv2d_depthwise(y, params["score_input_dw"]["w"], padding="SAME")
+    p = params["mix"]
+    return conv2d(u + d, p["w"], p["b"], padding="SAME")
+
+
+def dae_logits(
+    params: dict,
+    y: torch.Tensor,
+    h: Mapping[str, torch.Tensor] | None = None,
+    *,
+    depth: int = 4,
+    compute_dtype=torch.float32,
+    encoder: str = "pool",
+) -> torch.Tensor:
+    """DAE forward up to the softmax: probability map (B, H, W, C) (+
+    conditioning taps) -> logits at the input resolution and
+    ``compute_dtype``. The refinement engines hand these to the tail kernel,
+    which takes the softmax itself."""
+    stem_pool = dae_stem_pool_of(params)
+    x = y.to(compute_dtype)
+    for _ in range(stem_pool):
+        # edge-pad odd sizes to even so the decoder's x2 chain crops back down
+        ph, pw = int(x.shape[1]) % 2, int(x.shape[2]) % 2
+        if ph or pw:
+            x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="replicate").permute(0, 2, 3, 1)
+        x = avg_pool(x, window=2, stride=2)
+
+    s = dae_core(params, x, h, depth=depth, stem_pool=stem_pool, encoder=encoder)
+    if dae_tail_of(params) == "sep":
+        s = dae_septail_logits(params, s, y.to(s.dtype))
+    elif stem_pool:
+        for j in range(stem_pool):
+            s = conv_transpose2d(s, params[f"up_stem{j + 1}"]["w"], stride=2)
+        s = crop_to(s, y.shape[1], y.shape[2])
+        p = params["score_input"]
+        s = s + conv2d(y.to(s.dtype), p["w"], p["b"], padding="SAME")
+
+    return crop_to(s, y.shape[1], y.shape[2])
+
+
 def dae_apply(
     params: dict,
     y: torch.Tensor,
@@ -239,27 +298,9 @@ def dae_apply(
     encoder: str = "pool",
 ) -> torch.Tensor:
     """DAE forward: probability map (B, H, W, C) (+ conditioning taps) ->
-    denoised softmax map at the input resolution and ``out_dtype``."""
-    if dae_tail_of(params) == "sep":
-        raise NotImplementedError("tail='sep' is not ported yet (ROADMAP.md, Queue 1)")
-    stem_pool = dae_stem_pool_of(params)
-    x = y.to(compute_dtype)
-    for _ in range(stem_pool):
-        # edge-pad odd sizes to even so the decoder's x2 chain crops back down
-        ph, pw = int(x.shape[1]) % 2, int(x.shape[2]) % 2
-        if ph or pw:
-            x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph), mode="replicate").permute(0, 2, 3, 1)
-        x = avg_pool(x, window=2, stride=2)
-
-    s = dae_core(params, x, h, depth=depth, stem_pool=stem_pool, encoder=encoder)
-    if stem_pool:
-        for j in range(stem_pool):
-            s = conv_transpose2d(s, params[f"up_stem{j + 1}"]["w"], stride=2)
-        s = crop_to(s, y.shape[1], y.shape[2])
-        p = params["score_input"]
-        s = s + conv2d(y.to(s.dtype), p["w"], p["b"], padding="SAME")
-
-    logits = crop_to(s, y.shape[1], y.shape[2])
+    denoised softmax map at the input resolution and ``out_dtype`` (the f32
+    softmax of the logits, or a bf16 one when ``out_dtype`` is bf16)."""
+    logits = dae_logits(params, y, h, depth=depth, compute_dtype=compute_dtype, encoder=encoder)
     if out_dtype == torch.bfloat16:
         return torch.softmax(logits.to(torch.bfloat16), dim=-1)
     return torch.softmax(logits.float(), dim=-1).to(out_dtype)

@@ -31,6 +31,15 @@ def score_apply_fn(arch: str):
     return dae_apply
 
 
+def score_logits_fn(arch: str):
+    """Normalized ``(params, y, h, **kw)`` apply up to the logits: what the
+    refinement engines call, since the tail kernel takes the softmax."""
+    validate_arch(arch)
+    from iterative_inference_segm_tpu_torch.models.dae import dae_logits
+
+    return dae_logits
+
+
 def score_kwargs(arch: str, *, depth: int, encoder: str = "pool") -> dict:
     """Per-step apply kwargs (the refinement machinery's ``dae_kwargs``)."""
     validate_arch(arch)

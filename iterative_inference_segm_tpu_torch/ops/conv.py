@@ -123,6 +123,63 @@ def conv_transpose2d(
     return _nhwc(out[:, :, :h, :wd])
 
 
+def _depthwise_weight(w: torch.Tensor, c: int) -> None:
+    if w.dim() != 4 or tuple(w.shape[:2]) != (c, 1):
+        raise ValueError(f"depthwise weight (C, 1, kh, kw) expected, got {tuple(w.shape)} for C={c}")
+
+
+def conv2d_depthwise(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    padding: str | Sequence[tuple[int, int]] = "SAME",
+) -> torch.Tensor:
+    """Depthwise 2-D cross-correlation, NHWC x (C, 1, kh, kw) -> NHWC at
+    ``x.dtype`` (``groups=C``; the JAX kernel is (kh, kw, C))."""
+    c = int(x.shape[-1])
+    _depthwise_weight(w, c)
+    kh, kw = int(w.shape[2]), int(w.shape[3])
+    if padding == "SAME":
+        pads = (_same_pads(x.shape[1], kh, 1, 1), _same_pads(x.shape[2], kw, 1, 1))
+    elif padding == "VALID":
+        pads = ((0, 0), (0, 0))
+    else:
+        pads = tuple((int(lo), int(hi)) for lo, hi in padding)
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
+    _exact_f32(x.dtype)
+    xc = F.pad(_nchw(x), (pw_lo, pw_hi, ph_lo, ph_hi))
+    bias = None if b is None else b.to(x.dtype)
+    return _nhwc(F.conv2d(xc, _weight(w, x.dtype), bias, groups=c))
+
+
+def conv_transpose2d_depthwise(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    b: torch.Tensor | None = None,
+    *,
+    stride: int = 2,
+) -> torch.Tensor:
+    """Depthwise transposed conv, output ``stride * input``: the padding
+    convention of ``conv_transpose2d`` (``k + s - 2`` split with the odd
+    pixel low) with one filter per channel. ``w`` is (C, 1, kh, kw), already
+    spatially flipped like every transposed-conv weight of the port."""
+    c = int(x.shape[-1])
+    _depthwise_weight(w, c)
+    kh, kw = int(w.shape[2]), int(w.shape[3])
+    pads = []
+    for k in (kh, kw):
+        lo = -(-(k + stride - 2) // 2)
+        if k - 1 - lo < 0:
+            raise ValueError(f"conv_transpose2d_depthwise: kernel {k} smaller than stride {stride}")
+        pads.append(k - 1 - lo)
+    _exact_f32(x.dtype)
+    bias = None if b is None else b.to(x.dtype)
+    out = F.conv_transpose2d(_nchw(x), _weight(w, x.dtype), bias, stride, tuple(pads), groups=c)
+    h, wd = int(x.shape[1]) * stride, int(x.shape[2]) * stride
+    return _nhwc(out[:, :, :h, :wd])
+
+
 def max_pool(
     x: torch.Tensor, *, window: int = 2, stride: int = 2, ceil_mode: bool = True
 ) -> torch.Tensor:
@@ -200,3 +257,16 @@ def init_conv_transpose_bilinear(
 ) -> dict:
     """Transposed-conv params initialized to bilinear upsampling (no bias)."""
     return {"w": bilinear_kernel(k, cin, cout, dtype=dtype).to(device)}
+
+
+def bilinear_kernel_depthwise(k: int, c: int, dtype=torch.float32) -> torch.Tensor:
+    """Per-channel bilinear triangle filter, (C, 1, k, k) (symmetric, so the
+    transposed-conv flip leaves it unchanged)."""
+    return bilinear_kernel(k, 1, 1, dtype=dtype).expand(c, 1, k, k).clone()
+
+
+def delta_kernel_depthwise(k: int, c: int, dtype=torch.float32) -> torch.Tensor:
+    """Per-channel identity (centre delta) filter, (C, 1, k, k); odd k."""
+    w = torch.zeros((c, 1, k, k), dtype=dtype)
+    w[:, :, k // 2, k // 2] = 1.0
+    return w

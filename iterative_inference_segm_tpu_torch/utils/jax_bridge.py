@@ -8,9 +8,12 @@ weight is (I, O, kh, kw) and is correlated FLIPPED. So:
 
 * conv ``w``: HWIO -> OIHW (transpose only);
 * transposed conv ``w`` (every layer whose name starts with ``up``: FCN-8's
-  ``upscore*``, the DAE's ``up<i>`` / ``up_stem<j>``): HWIO -> IOHW **and** a
-  spatial flip. The bilinear init is symmetric, so a missing flip only shows
-  with trained or random weights (``tests/test_torch_ops.py`` uses random);
+  ``upscore*``, the DAE's ``up<i>`` / ``up_stem<j>`` / ``up_stem_dw``):
+  HWIO -> IOHW **and** a spatial flip. The bilinear init is symmetric, so a
+  missing flip only shows with trained or random weights
+  (``tests/test_torch_ops.py`` uses random);
+* depthwise ``w`` (the 'sep' tail's ``*_dw`` layers): (kh, kw, C) ->
+  (C, 1, kh, kw), flipped too where the layer is transposed;
 * biases unchanged.
 
 Input is the JAX tree as numpy-convertible leaves — nested
@@ -28,6 +31,10 @@ import torch
 
 def is_transposed(layer: str) -> bool:
     return layer.startswith("up")
+
+
+def is_depthwise(layer: str) -> bool:
+    return layer.endswith("_dw")
 
 
 def unflatten(flat: Mapping[str, object]) -> dict:
@@ -53,13 +60,14 @@ def params_from_jax(
         for leaf, value in leaves.items():
             a = np.asarray(value, dtype=np.float32)
             if leaf == "w":
-                if a.ndim != 4:
-                    raise NotImplementedError(
-                        f"{layer}/w has shape {a.shape}: depthwise ('sep' tail) "
-                        "weights are not ported yet"
-                    )
+                if a.ndim != (3 if is_depthwise(layer) else 4):
+                    raise ValueError(f"{layer}/w has shape {a.shape}")
                 if is_transposed(layer):
-                    a = np.flip(a, (0, 1)).transpose(2, 3, 0, 1)
+                    a = np.flip(a, (0, 1))
+                if is_depthwise(layer):
+                    a = a.transpose(2, 0, 1)[:, None]
+                elif is_transposed(layer):
+                    a = a.transpose(2, 3, 0, 1)
                 else:
                     a = a.transpose(3, 2, 0, 1)
             conv[leaf] = torch.from_numpy(a.copy()).to(device=device, dtype=dtype)
@@ -76,10 +84,14 @@ def params_to_jax(params: Mapping) -> dict:
         for leaf, t in leaves.items():
             a = t.detach().to(device="cpu", dtype=torch.float32).numpy()
             if leaf == "w":
-                if is_transposed(layer):
-                    a = np.flip(a.transpose(2, 3, 0, 1), (0, 1))
+                if is_depthwise(layer):
+                    a = a[:, 0].transpose(1, 2, 0)
+                elif is_transposed(layer):
+                    a = a.transpose(2, 3, 0, 1)
                 else:
                     a = a.transpose(2, 3, 1, 0)
+                if is_transposed(layer):
+                    a = np.flip(a, (0, 1))
             conv[leaf] = np.ascontiguousarray(a)
         out[layer] = conv
     return out

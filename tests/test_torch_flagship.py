@@ -164,8 +164,9 @@ def test_make_half_refiner_equals_flagship():
 def test_engine_rejects_what_is_not_ported():
     jf, jd = _params()
     tf, td = params_from_jax(jf), params_from_jax(jd)
-    with pytest.raises(NotImplementedError):
-        tfused.flagship_forward_fn(mode="energy")
+    # energy mode runs, unfolded: folding it is refused, as in the JAX package
+    with pytest.raises(ValueError, match="fold_tail"):
+        tfused.make_half_refiner(None, tf, td, eps=0.1, num_steps=1, mode="energy", fold_tail=True)
     for fused_engine in (tfused.fused_refinement_scan, tfused.make_fused_refiner):
         with pytest.raises(NotImplementedError):
             fused_engine(td, None, torch.zeros((1, 48, 64, C)), eps=0.1, num_steps=1)
@@ -218,7 +219,7 @@ def test_predictor_from_npz(tmp_path):
 
 @pytest.mark.parametrize(
     "kw,exc",
-    [({"engine": "general"}, NotImplementedError), ({"engine": "fused"}, ValueError),
+    [({"engine": "general", "mesh": object()}, NotImplementedError), ({"engine": "fused"}, ValueError),
      ({"dae_arch": "mirror"}, NotImplementedError), ({"dae_arch": "unet"}, ValueError),
      ({"mesh": object()}, NotImplementedError), ({"pp_mesh": object()}, NotImplementedError),
      ({"batch_size": 0}, ValueError)],

@@ -75,8 +75,8 @@ def test_init_shapes_match_jax():
 
 
 def test_init_dae_rejects_like_jax():
-    with pytest.raises(NotImplementedError):
-        tdae.init_dae(torch.Generator(), n_classes=C, stem_pool=1, tail="sep")
+    with pytest.raises(ValueError, match="stem_pool=1"):
+        tdae.init_dae(torch.Generator(), n_classes=C, stem_pool=0, tail="sep")
     with pytest.raises(ValueError):
         tdae.init_dae(torch.Generator(), n_classes=C, tail="wide")
     with pytest.raises(ValueError):

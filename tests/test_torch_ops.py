@@ -161,11 +161,15 @@ for m in mods:
     importlib.import_module(m)
 leaked = sorted(n for n in sys.modules if n.split(".")[0] in BLOCKED)
 assert not leaked, leaked
-print(len(mods))
+print(" ".join(mods))
 """
     root = str(__import__("pathlib").Path(__file__).resolve().parent.parent)
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=root, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12  # every module was walked
+    walked = set(out.stdout.split())
+    assert len(walked) >= 34  # every module was walked, these among them:
+    for mod in ("inference.iterative", "inference.search", "ops.vpu_probe", "tools.vpu_probe",
+                "tools.profile_general", "scripts.iterative_inference"):
+        assert "iterative_inference_segm_tpu_torch." + mod in walked, mod
