@@ -16,8 +16,16 @@ Phases:
  1. device   -- a CUDA card is required (there is no CPU fallback)
  2. build    -- nvcc builds csrc/refine_tail.cu, csrc/corruption.cu and
                 csrc/vpu_probe.cu for sm_90a, all at once
- 3. kernel   -- refine_tail against refine_tail_reference at the main
-                path's shapes, bf16 and f32, with CUDA-event times
+ 3. kernel   -- the layouts (shapes, strides, dtypes) the engines hand
+                refine_tail at its three call sites (half-engine step,
+                rectification, general-engine step), all row-packed; the
+                kernel against refine_tail_reference at those shapes in
+                bf16 and f32 (the general step with bf16 logits beside the
+                f32 iterate), timed warm and cold (L2 flushed) against its
+                bound, with the share of the bound; then edge cases (crop
+                offsets of 1, 3, 5 pixels, a ragged row, C in 1..32, y.W + b,
+                and maps that are not row-packed, which must count as
+                strided launches)
  4. serve    -- Predictor(engine="half") answers 3 requests (3, 8, 13
                 images at 360x480, bf16, K=5) over seeded random weights at
                 full width (FCN-8 fc 4096, C=11); the kernel's launch count
@@ -26,7 +34,8 @@ Phases:
  6. timing   -- flagship forward images/s at batch 8 and 32
  7. corrupt  -- K1 (corrupt_onehot) and K2 (corrupt_probs) against their
                 plain versions at the training shapes, sigma 0 and 1, with
-                CUDA-event times beside a plain fill of the same output
+                CUDA-event times beside a plain fill of the same output, and
+                their static SASS instruction counts
  8. train    -- train_dae at full width (FCN-8 fc 4096, DAE stem 1 / depth 3,
                 batch 32 of 360x480 frames cropped to 224 with flips, bf16,
                 eval on full frames) in the gt, natural and mix regimes; the
@@ -51,9 +60,11 @@ Phases:
                 K_max 10, two val batches of 4, bf16) against per-K engine
                 runs at two (eps, K) points; then the CLI's main() with
                 --synthetic --search --num-batches 2 --bf16 at full width
-Every phase asserts; any failure raises and the exit code is non-zero. The
-line before the last is the kernel report (JSON), the last line the device
-report (JSON).
+Phases 4, 10, 12 and 13 also assert that no refine_tail launch of theirs
+took the kernel's strided staging. Every phase asserts; any failure raises
+and the exit code is non-zero. The line before the last is the kernel
+report (JSON: each kernel's launches on its path, error, times, bound and
+what sets it), the last line the device report (JSON).
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import pathlib
 import re
 import shutil
 import subprocess
@@ -87,6 +99,7 @@ from iterative_inference_segm_tpu_torch.ops.conv import conv2d
 from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail, refine_tail_reference
 from iterative_inference_segm_tpu_torch.scripts import iterative_inference as cli
+from iterative_inference_segm_tpu_torch.tools import tail_bench
 from iterative_inference_segm_tpu_torch.tools import vpu_probe as probe_tool
 from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer
 from iterative_inference_segm_tpu_torch.train.train_dae import (
@@ -168,8 +181,28 @@ ENERGY_REL_TOL = 1e-5
 ENERGY_GRAD_REL_TOL = 0.05
 
 
+# f32 operations an element, for the operations side of each bound (the
+# special functions counted once each): K1/K2 two uniforms, the Box-Muller
+# transform, the scaled add, and the softmax; K5 the class scale, three
+# shifted multiply-adds and the softmax.
+CORRUPT_FLOPS = 20
+PATTERN_FLOPS = 12
+
+
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
+
+
+def reset_tail_counts() -> None:
+    refine_tail.launches = 0
+    refine_tail.strided_launches = 0
+
+
+def check_no_strided(tag: str) -> None:
+    """The engines hand the kernel row-packed maps only: no launch of the
+    main path takes its strided staging."""
+    if refine_tail.strided_launches:
+        raise AssertionError(f"{tag}: {refine_tail.strided_launches} refine_tail launches took the strided staging")
 
 
 def nvidia_smi() -> str:
@@ -210,6 +243,25 @@ def ptxas_summary(log) -> str:
     return " | ".join(out)
 
 
+def sass_instruction_counts(lib) -> dict[str, int]:
+    """Static SASS instructions of each kernel in a built library
+    (``cuobjdump -sass``, beside nvcc), keyed by the kernel's name with its
+    template arguments as ``ptxas_summary`` shows them."""
+    cuobjdump = str(pathlib.Path(_build.find_nvcc()).with_name("cuobjdump"))
+    out = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                         timeout=120).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d+([A-Za-z][A-Za-z_]*_kernel)I(\w+?)EE", m.group(1))
+            name = f"{k.group(1)}<{k.group(2)}>" if k else m.group(1)[:40]
+            counts[name] = 0
+        elif name is not None and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
@@ -224,69 +276,107 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_cases(dev, gen):
-    """(name, dtype, u, y, v, w, b, with_labels) at the main path's shapes."""
+def edge_cases(dev, gen):
+    """(name, dtype, u, y, v, w, b, with_labels, strided) beyond the main
+    path's shapes: u wider and taller by 1, 3 and 5 pixels (a row span of u
+    then starts 2 bytes into a 16-byte chunk in bf16), a row of 301 pixels
+    (no multiple of the kernel's tile), C in {1, 11, 16, 17, 32}, K3's own
+    function (u + y.W + b), and u and v laid out as NCHW memory (not
+    row-packed), which must take the kernel's strided staging."""
     def probs(shape):
         return torch.softmax(torch.randn(shape, generator=gen) * 3.0, -1)
 
     def logits(shape):
         return torch.randn(shape, generator=gen) * 3.0
 
+    def nchw_memory(t):
+        return t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+
+    step = (BATCH, H // 2, W // 2, N_CLASSES)
     cases = []
     for dt in (torch.bfloat16, torch.float32):
         tag = "bf16" if dt == torch.bfloat16 else "f32"
-        step = (BATCH, H // 2, W // 2, N_CLASSES)
-        full = (BATCH, H, W, N_CLASSES)
-        cases.append((f"step_{tag}", dt, logits(step), probs(step), logits(step), None, None, False))
-        cases.append((f"rect_{tag}", dt, logits(full), probs(full), logits(full), None, None, True))
-        # the u map is larger than y: crop offsets (1, 2), as crop_to takes them
-        cases.append((
-            f"crop_{tag}", dt, logits((BATCH, H // 2 + 3, W // 2 + 5, N_CLASSES)),
-            probs(step), logits(step), None, None, False,
-        ))
-        # K3's own function: u + y.W + b, no v
+        for d in (1, 3, 5):
+            cases.append((f"crop+{d}_{tag}", dt, logits((BATCH, H // 2 + d, W // 2 + d, N_CLASSES)),
+                          probs(step), logits(step), None, None, False, False))
+        cases.append((f"ragged_{tag}", dt, logits((4, 31, 304, N_CLASSES)), probs((4, 30, 301, N_CLASSES)),
+                       logits((4, 30, 301, N_CLASSES)), None, None, True, False))
+        for c in (1, 11, 16, 17, 32):
+            cases.append((f"C={c}_{tag}", dt, logits((2, 25, 203, c)), probs((2, 24, 200, c)),
+                          logits((2, 24, 200, c)), None, None, True, False))
         wm = torch.randn((N_CLASSES, N_CLASSES), generator=gen) * 0.5
         bias = torch.randn((N_CLASSES,), generator=gen)
-        cases.append((f"w_{tag}", dt, logits(step), probs(step), None, wm, bias, True))
+        cases.append((f"w_{tag}", dt, logits(step), probs(step), None, wm, bias, True, False))
+        cases.append((f"strided_{tag}", dt, nchw_memory(logits((BATCH, H // 2 + 3, W // 2 + 5, N_CLASSES))),
+                      probs(step), nchw_memory(logits(step)), None, None, True, True))
 
-    def on_card(t, dt=None):
+    def on_card(t, dt=None):  # .to keeps a dense map's strides
         return None if t is None else t.to(dev, dt or t.dtype)
 
     return [
-        (name, dt, on_card(u, dt), on_card(y, dt), on_card(v, dt), on_card(wm), on_card(bias), lab)
-        for name, dt, u, y, v, wm, bias, lab in cases
+        (name, dt, on_card(u, dt), on_card(y, dt), on_card(v, dt), on_card(wm), on_card(bias), lab, strided)
+        for name, dt, u, y, v, wm, bias, lab, strided in cases
     ]
 
 
-def run_kernel_phase(dev):
-    gen = torch.Generator().manual_seed(0)
+def check_kernel_case(name, got, ref, with_labels, dtype):
+    """The kernel's output against the plain version's; returns (max abs
+    err, argmax agreement)."""
+    g_y, r_y = (got[0], ref[0]) if with_labels else (got, ref)
+    err = (g_y.float() - r_y.float()).abs().max().item()
+    agree = (g_y.float().argmax(-1) == r_y.float().argmax(-1)).float().mean().item()
+    if with_labels:
+        lab_agree = (got[1] == ref[1]).float().mean().item()
+        if got[1].dtype != torch.int32 or lab_agree < MIN_ARGMAX_AGREE:
+            raise AssertionError(f"{name}: labels agree {lab_agree:.6f} ({got[1].dtype})")
+        if not torch.equal(got[1], g_y.float().argmax(-1).to(torch.int32)):
+            raise AssertionError(f"{name}: kernel labels differ from the argmax of its own y'")
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    if not err <= tol or agree < MIN_ARGMAX_AGREE:
+        raise AssertionError(f"{name}: max abs err {err:.3e} (tol {tol:.1e}), argmax agree {agree:.6f}")
+    return err, agree
+
+
+def run_kernel_phase(dev, fcn, dae, gdae):
+    """Step 0, the layouts the engines hand the kernel at its three call
+    sites; then refine_tail against its plain version at those sites'
+    shapes (timed warm and cold against the bound) and at the edge cases."""
+    seen = tail_bench.record_main_path(dev, fcn, dae, gdae)
+    for site, rec in seen.items():
+        phase("kernel", f"layout at {site}: " + "; ".join(
+            f"{k} {r['shape']} stride {r['stride']} {r['dtype']} row-packed {r['row_packed']}"
+            for k, r in rec.items() if isinstance(r, dict)) + f"; labels {rec['labels']}")
+        if not all(r["row_packed"] for r in rec.values() if isinstance(r, dict)):
+            raise AssertionError(f"the engines hand the kernel a map that is not row-packed at {site}")
     worst = 0.0
     report = {}
-    for name, dt, u, y, v, wm, bias, lab in kernel_cases(dev, gen):
+    flush = tail_bench.flush_buffer(dev)
+    for case in tail_bench.main_path_cases(dev, seen):
+        strided = refine_tail.strided_launches
+        got, ref = case.kernel(), case.plain()
+        torch.cuda.synchronize()
+        if refine_tail.strided_launches != strided:
+            raise AssertionError(f"{case.name}: a main-path layout took the strided staging")
+        err, agree = check_kernel_case(case.name, got, ref, case.with_labels, case.y.dtype)
+        worst = max(worst, err)
+        t = tail_bench.time_case(case, flush)
+        report[case.name] = {"max_abs_err": err, "argmax_agree": agree, **t}
+        phase("kernel", f"{case.name:12s} y={tuple(case.y.shape)} {str(case.y.dtype)[6:]} "
+              f"u={tuple(case.u.shape)} {str(case.u.dtype)[6:]} max_abs_err={err:.3e} argmax_agree={agree:.6f}; "
+              + tail_bench.report(t))
+    gen = torch.Generator().manual_seed(0)
+    for name, dt, u, y, v, wm, bias, lab, strided in edge_cases(dev, gen):
+        before = refine_tail.strided_launches
         got = refine_tail(u, y, EPS, v=v, w=wm, b=bias, with_labels=lab)
         ref = refine_tail_reference(u, y, EPS, v=v, w=wm, b=bias, with_labels=lab)
         torch.cuda.synchronize()
-        g_y, r_y = (got[0], ref[0]) if lab else (got, ref)
-        err = (g_y.float() - r_y.float()).abs().max().item()
-        agree = (g_y.float().argmax(-1) == r_y.float().argmax(-1)).float().mean().item()
-        if lab:
-            lab_agree = (got[1] == ref[1]).float().mean().item()
-            if got[1].dtype != torch.int32 or lab_agree < MIN_ARGMAX_AGREE:
-                raise AssertionError(f"{name}: labels agree {lab_agree:.6f} ({got[1].dtype})")
-            if not torch.equal(got[1], g_y.float().argmax(-1).to(torch.int32)):
-                raise AssertionError(f"{name}: kernel labels differ from the argmax of its own y'")
-        tol = F32_TOL if dt == torch.float32 else BF16_TOL
-        if not err <= tol or agree < MIN_ARGMAX_AGREE:
-            raise AssertionError(f"{name}: max abs err {err:.3e} (tol {tol:.1e}), argmax agree {agree:.6f}")
-        ms = cuda_time_ms(lambda: refine_tail(u, y, EPS, v=v, w=wm, b=bias, with_labels=lab), 50)
-        plain_ms = cuda_time_ms(
-            lambda: refine_tail_reference(u, y, EPS, v=v, w=wm, b=bias, with_labels=lab), 50
-        )
+        if refine_tail.strided_launches - before != int(strided):
+            raise AssertionError(f"{name}: strided launches {refine_tail.strided_launches - before}, "
+                                 f"expected {int(strided)}")
+        err, agree = check_kernel_case(name, got, ref, lab, dt)
         worst = max(worst, err)
-        report[name] = {"max_abs_err": err, "argmax_agree": agree, "ms": ms, "plain_ms": plain_ms}
-        phase("kernel", f"{name:10s} shape={tuple(y.shape)} u={tuple(u.shape)} "
-              f"max_abs_err={err:.3e} argmax_agree={agree:.6f} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
+        phase("kernel", f"{name:12s} y={tuple(y.shape)} u={tuple(u.shape)} stride {u.stride()} "
+              f"max_abs_err={err:.3e} argmax_agree={agree:.6f} strided={strided}")
     return worst, report
 
 
@@ -309,7 +399,7 @@ def run_serve_phase(dev, fcn, dae):
     rng = np.random.default_rng(0)
     requests = [rng.random((n, H, W, 3), dtype=np.float32) for n in (3, 8, 13)]
     chunks = sum(-(-len(r) // BATCH) for r in requests)
-    refine_tail.launches = 0
+    reset_tail_counts()
     t0 = time.perf_counter()
     answers = [pred.predict(r, return_probs=True) for r in requests]
     torch.cuda.synchronize()
@@ -331,6 +421,7 @@ def run_serve_phase(dev, fcn, dae):
     want = (K_STEPS + 1) * chunks
     if launches != want:
         raise AssertionError(f"refine_tail launched {launches} times; expected {want}")
+    check_no_strided("serve")
     phase("serve", f"{sum(len(r) for r in requests)} images in {chunks} chunks, "
           f"{secs:.2f} s wall (first calls included); refine_tail launches {launches} "
           f"= (K+1) x chunks")
@@ -421,11 +512,31 @@ def run_corrupt_phase(dev):
                 out = torch.empty_like(got)
                 fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
                 key = (name, shape, sigma)
-                report[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+                report[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                               "bytes": src.numel() * src.element_size() + got.numel() * got.element_size(),
+                               "flops": CORRUPT_FLOPS * got.numel()}
                 phase("corrupt", f"{name:14s} {tuple(got.shape)} sigma={sigma}: "
                       f"max_abs_err={err:.3e} row_sum_err={sum_err:.1e} argmax_agree={agree:.6f} "
                       f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                       f"store_floor_ms={fill_ms:.4f} ({got.numel() * 4 / 1e6:.1f} MB)")
+    # The instruction-issue time of K1/K2 at the training shape if every
+    # static instruction of the C <= 16 instance ran once a warp: an
+    # estimate of the issue side, not a bound (it counts the unused classes'
+    # predicated code and the special functions' slow paths, and no loop).
+    sass = sass_instruction_counts(_build.build("corruption"))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    hz = probe_tool.max_sm_clock_mhz(dev) * 1e6
+    warps = TRAIN_BATCH * CROP[0] * CROP[1] / 32
+    for kname, inst in (("corrupt_onehot", "corrupt_kernel<Lb1ELi16>"),
+                        ("corrupt_probs", "corrupt_kernel<Lb0ELi16>")):
+        n = sass.get(inst)
+        if n is None:
+            raise AssertionError(f"no SASS for {inst} in {sorted(sass)}")
+        issue_ms = n * warps / (sms * 4 * hz) * 1e3
+        report[(kname, "sass")] = {"instructions": n, "issue_ms": issue_ms}
+        phase("corrupt", f"{kname}: {n} static SASS instructions in {inst}; once a warp over "
+              f"{TRAIN_BATCH}x{CROP[0]}x{CROP[1]} pixels at {sms} SMs x 4 issues x {hz / 1e6:.0f} MHz: "
+              f"{issue_ms:.4f} ms of issue")
     return report
 
 
@@ -580,7 +691,7 @@ def run_train_serve_phase(dev, fcn, gt_workdir):
         engine="half", batch_size=BATCH, compute_dtype=torch.bfloat16, num_steps=K_STEPS, eps=EPS,
     )
     images = np.random.default_rng(3).random((3, H, W, 3), dtype=np.float32)
-    refine_tail.launches = 0
+    reset_tail_counts()
     labels, probs = pred.predict(images, return_probs=True)
     torch.cuda.synchronize()
     if labels.shape != (3, H, W) or labels.dtype != np.int32:
@@ -589,6 +700,7 @@ def run_train_serve_phase(dev, fcn, gt_workdir):
         raise AssertionError("served probabilities not finite or off the simplex")
     if refine_tail.launches != K_STEPS + 1:
         raise AssertionError(f"refine_tail launched {refine_tail.launches} times")
+    check_no_strided("tserve")
     phase("tserve", f"best_dae.npz from the gt regime served 3 images at {H}x{W}: labels "
           f"{labels.shape} int32, classes used {len(np.unique(labels))}, refine_tail launches "
           f"{refine_tail.launches}")
@@ -658,7 +770,7 @@ def _check_answer(labels, probs, n):
 
 
 def _serve_counted(pred, requests, want_launches, tag):
-    refine_tail.launches = 0
+    reset_tail_counts()
     t0 = time.perf_counter()
     answers = [pred.predict(r, return_probs=True) for r in requests]
     torch.cuda.synchronize()
@@ -668,6 +780,7 @@ def _serve_counted(pred, requests, want_launches, tag):
         _check_answer(labels, probs, len(req))
     if launches != want_launches:
         raise AssertionError(f"{tag}: refine_tail launched {launches} times; expected {want_launches}")
+    check_no_strided(tag)
     phase("general", f"{tag}: {sum(len(r) for r in requests)} images, {secs:.2f} s wall (first calls "
           f"included), refine_tail launches {launches}, classes used "
           f"{len(np.unique(answers[-1][0]))}")
@@ -819,7 +932,7 @@ def run_search_phase(dev, fcn, flag_dae):
            for i, lab in synthetic_batches(cfg=CAMVID, batch_size=GENERAL_BATCH, num_batches=2, seed=500)]
     kw = dict(n_classes=N_CLASSES, eps_grid=SEARCH_EPS, k_max=SEARCH_KMAX, device=dev,
               compute_dtype=torch.bfloat16)
-    refine_tail.launches = 0
+    reset_tail_counts()
     t0 = time.perf_counter()
     gen = grid_search_eps_k(fcn8_apply, dae_logits, fcn, dae, val, dae_kwargs={"depth": 4}, **kw)
     half = grid_search_eps_k_half(fcn8_apply, fcn, flag_dae, val, depth=3, **kw)
@@ -830,6 +943,7 @@ def run_search_phase(dev, fcn, flag_dae):
     want = len(SEARCH_EPS) * len(val) * (SEARCH_KMAX + 2 * SEARCH_KMAX + 1)
     if launches != want:
         raise AssertionError(f"searches launched refine_tail {launches} times; expected {want}")
+    check_no_strided("search")
     for name, res in (("general", gen), ("half", half)):
         grid = res["miou"]
         if grid.shape != (len(SEARCH_EPS), SEARCH_KMAX + 1) or not np.isfinite(grid).all():
@@ -862,7 +976,7 @@ def run_search_phase(dev, fcn, flag_dae):
 
     # the CLI at full width (its own seeded random weights)
     buf = io.StringIO()
-    refine_tail.launches = 0
+    reset_tail_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["--synthetic", "--search", "--num-batches", "2", "--bf16", "--device", str(dev)])
@@ -875,6 +989,7 @@ def run_search_phase(dev, fcn, flag_dae):
             and lines[1].startswith("step 0 (FCN-8 baseline): mIoU ") and " mIoU " in lines[2]
             and lines[3] == "per-class IoU (k=0 -> k=K):"):
         raise AssertionError(f"CLI printed {lines}")
+    check_no_strided("CLI")
     phase("search", f"CLI --synthetic --search --num-batches 2 --bf16: {secs:.1f} s wall, "
           f"refine_tail launches {refine_tail.launches}")
     return launches
@@ -904,8 +1019,8 @@ def main() -> int:
         phase("build", f"nvcc sm_90a {lib.name}; ptxas: {ptxas_summary(lib.with_suffix('.log'))}")
     phase("build", f"{len(libs)} kernels built in {time.perf_counter() - t0:.1f} s")
 
-    worst, kreport = run_kernel_phase(dev)
     fcn, dae = full_width_params(dev)
+    worst, kreport = run_kernel_phase(dev, fcn, dae, general_params(dev))
     launches = run_serve_phase(dev, fcn, dae)
     run_parity_phase(fcn, dae)
     run_timing_phase(dev, fcn, dae, smi)
@@ -924,13 +1039,17 @@ def main() -> int:
     launches += general_launches
     launches += run_search_phase(dev, fcn, dae)
 
+    # No single PyTorch call computes any of the five functions, so each
+    # library_ms is null. K3's entry is the half engine's step (bf16, the
+    # K-a-chunk launch), timed cold.
     step = kreport["step_bf16"]
     kernels = [{
         "name": "refine_tail", "route": "cuda",
         "source": "iterative_inference_segm_tpu_torch/csrc/refine_tail.cu",
         "replaces": "tools/tail_kernel_proto.py:41",
         "launches": launches, "max_abs_err": worst,
-        "ms": step["ms"], "plain_ms": step["plain_ms"],
+        "ms": step["cold_ms"], "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"], "bound_by": step["bound_by"], "library_ms": None,
     }]
     for kname, line in (("corrupt_onehot", 59), ("corrupt_probs", 100)):
         main_path = creport[(kname, (TRAIN_BATCH, *CROP), SIGMA)]
@@ -939,17 +1058,25 @@ def main() -> int:
             "source": "iterative_inference_segm_tpu_torch/csrc/corruption.cu",
             "replaces": f"iterative_inference_segm_tpu/ops/pallas/corruption_kernel.py:{line}",
             "launches": train_launches[kname],
-            "max_abs_err": max(r["max_abs_err"] for k, r in creport.items() if k[0] == kname),
+            "max_abs_err": max(r["max_abs_err"] for k, r in creport.items()
+                               if k[0] == kname and "max_abs_err" in r),
             "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
+            **tail_bench.bound_ms(main_path["bytes"], main_path["flops"]), "library_ms": None,
         })
-    for kname, line, key in (("fma_chain", 30, ("fma", torch.float32, 100)),
-                             ("pattern_softmax", 73, ("pattern", torch.float32))):
+    fma_n = 100  # the f32 maps: each read once and written once
+    pattern_numel = probe_tool.B * probe_tool.R * probe_tool.C * probe_tool.W
+    fma_numel = pattern_numel * probe_tool.NH
+    for kname, line, key, numel, flops in (
+        ("fma_chain", 30, ("fma", torch.float32, fma_n), fma_numel, 2 * fma_n * fma_numel),
+        ("pattern_softmax", 73, ("pattern", torch.float32), pattern_numel, PATTERN_FLOPS * pattern_numel),
+    ):
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "iterative_inference_segm_tpu_torch/csrc/vpu_probe.cu",
             "replaces": f"tools/vpu_probe.py:{line}",
             "launches": probe_launches[kname], "max_abs_err": probe_err[kname],
             "ms": probe_res[key]["ms"], "plain_ms": probe_res[key]["plain_ms"],
+            **tail_bench.bound_ms(2 * numel * 4, flops), "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

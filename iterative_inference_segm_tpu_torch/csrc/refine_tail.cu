@@ -4,50 +4,83 @@
 // Replaces the Pallas kernels tools/tail_kernel_proto.py::kernel_unroll and
 // ::kernel_dot (the prototype "K3"), which compute, row-wise over pixels,
 //     logits = u + y.W + b;  r = softmax(logits);  y' = (1 - eps) y + eps r.
-// This kernel computes the same function, extended for the half engine's main
-// path (inference/fused.py):
+// This kernel computes the same function, extended for the refinement
+// engines' main paths (inference/fused.py, inference/iterative.py):
 //     logits = crop(u) + v + y.W + b      (v, W, b each optional)
 //     r      = softmax(logits)            over C <= 32 classes
 //     y'     = (1 - eps) y + eps r        one rounding, on the store
 //     labels = argmax(y')                 optional; on the stored (rounded)
 //                                          values, first maximum wins
 // u is read through its own strides at crop_to's centre offsets, so the
-// cropped sum crop(u) + v is never materialized. Inputs and outputs are f32
-// or bf16; all arithmetic is f32.
+// cropped sum crop(u) + v is never materialized. y, v and y' are f32 or
+// bf16; u has y's dtype, or is bf16 beside an f32 y (the general engine's
+// bf16 logits, widened in registers instead of by a cast pass). All
+// arithmetic is f32.
 //
 // What bounds it: device-memory bytes. At C = 11 the class axis is far too
 // narrow for tensor cores, and a pixel needs ~6 flops per byte moved. In bf16
-// a refinement step moves about 88 B/pixel (u, v and y read at 22 B each, y'
-// written at 22 B); the rectification moves more (labels add 4 B/pixel, and
-// u carries the uncropped border). The composition in plain PyTorch makes
-// about eight full passes (crop-add, add, softmax read+write, the blend's
-// three elementwise ops) over the same maps.
+// a refinement step moves 88 B/pixel (u, v and y read at 22 B each, y'
+// written at 22 B). What held the first, one-pixel-a-thread form of this
+// kernel at 16-29% of the bandwidth was the number of accesses, not bytes:
+// C scalar 2- or 4-byte loads per map at a 22- or 44-byte stride.
 //
-// What the design does about it: one pass. Each thread owns one pixel, loads
-// its C logits' addends and its C probabilities once, keeps logits,
-// exponentials and the blend in registers (CMAX-unrolled, predicated on C),
-// and writes y' (and the label) once. Neighbouring threads own neighbouring
-// pixels, so a warp's loads cover one contiguous span of each map and are
-// served from the same cache lines. It is the simple, correct form: 16-byte
-// vector loads, a warp-cooperative pixel layout and a persistent grid are
-// later work.
+// What the design does about it. A block works on one tile of up to kTile
+// pixels of one (b, h) row (tiles balanced along the row), and the grid
+// covers every tile: 16 blocks resident on an SM overlap one another's
+// copies and arithmetic (a persistent grid with a ring of two to four tiles
+// in flight a block measured slower). Where a map is row-packed (class
+// stride 1, pixel stride C, as the NHWC views of channels_last convolution
+// outputs are), a tile's span of it is contiguous: the block copies it to
+// shared memory in 16-byte cp.async copies, neighbouring threads on
+// neighbouring words, from the 16-byte-aligned address at or below the span
+// (a crop offset or an odd row pitch leaves the span 2-byte aligned; the
+// head offset is carried). Each thread then computes one pixel from shared
+// memory exactly as the first form did (same f32 operations, same order),
+// writes y' (and its label) to shared memory, and the block stores the
+// tile's output span with 16-byte stores, with element stores only at its
+// unaligned ends. A map that is not row-packed is staged element by element
+// in the same kernel (the wrapper counts those launches apart). A 16-byte
+// chunk holding at least one byte of a map lies in the same page as that
+// byte, so reading the whole chunk cannot fault.
 //
 // Plain C interface (loaded with ctypes by ops/refine_tail.py); the launch
-// returns cudaGetLastError() so the wrapper can raise on a refused launch.
+// returns the CUDA error of its set-up or launch so the wrapper can raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
-struct Strides {
-  long long b, h, w, c;  // in elements
+constexpr int kTile = 128;  // pixels of a row per block, one a thread
+
+struct Map {
+  const void* p;             // element (0, 0, 0, 0); null for an absent v
+  long long sb, sh, sw, sc;  // strides in elements
+  int packed;                // sc == 1 and sw == C: a tile's span is contiguous
 };
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
+struct Params {
+  Map u, v, y;
+  int off_h, off_w;  // u's crop offsets
+  const float* wmat;
+  const float* bias;
+  float eps, one_minus_eps;
+  void* out;    // contiguous (B, H, W, C), y's dtype
+  int* labels;  // contiguous (B, H, W), or null
+  int H, W, C;
+  int tile, tiles_per_row;         // a row is cut into tiles_per_row tiles of <= tile pixels
+  int reg_u, reg_v, reg_y, reg_o;  // shared bytes of one tile of each map
+};
+
+__device__ __forceinline__ long long offset(const Map& m, int b, int h, int w) {
+  return b * m.sb + h * m.sh + w * m.sw;
 }
+
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ float store(float* p, float x) {
   *p = x;
@@ -59,138 +92,241 @@ __device__ __forceinline__ float store(__nv_bfloat16* p, float x) {
   return __bfloat162float(q);
 }
 
-template <typename T, int CMAX>
-__global__ void __launch_bounds__(256) refine_tail_kernel(
-    const T* __restrict__ u, Strides su, int off_h, int off_w,
-    const T* __restrict__ v, Strides sv,
-    const T* __restrict__ y, Strides sy,
-    const float* __restrict__ wmat, const float* __restrict__ bias,
-    float eps, float one_minus_eps,
-    T* __restrict__ out, int* __restrict__ labels,
-    int B, int H, int W, int C) {
-  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total = (long long)B * H * W;
-  if (n >= total) return;
-  const int w = (int)(n % W);
-  const long long t = n / W;
-  const int h = (int)(t % H);
-  const int b = (int)(t / H);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
 
-  const T* up = u + b * su.b + (long long)(h + off_h) * su.h + (long long)(w + off_w) * su.w;
-  const T* yp = y + b * sy.b + (long long)h * sy.h + (long long)w * sy.w;
+// Stage n pixels (n * C elements) of a map, from element off, into dst:
+// 16-byte cp.async copies for a row-packed map, from the 16-byte-aligned
+// address at or below the span; element loads otherwise. Returns the byte
+// in dst at which the span starts (its head offset; 0 for element loads).
+template <typename E>
+__device__ __forceinline__ int stage(unsigned char* dst, const Map& m, long long off, int n, int C) {
+  const E* src = static_cast<const E*>(m.p) + off;
+  if (m.packed) {
+    const int head = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+    const unsigned char* a = reinterpret_cast<const unsigned char*>(src) - head;
+    const int chunks = (head + n * C * (int)sizeof(E) + 15) >> 4;
+    for (int k = threadIdx.x; k < chunks; k += blockDim.x) cp_async16(dst + 16 * k, a + 16 * k);
+    return head;
+  }
+  E* d = reinterpret_cast<E*>(dst);
+  for (int i = threadIdx.x; i < n * C; i += blockDim.x) {
+    const int px = i / C, c = i - px * C;
+    d[i] = __ldg(src + px * m.sw + c * m.sc);
+  }
+  return 0;
+}
 
-  float yv[CMAX];
-  float lg[CMAX];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < C) {
-      yv[c] = load(yp + c * sy.c);
-      lg[c] = load(up + c * su.c);
-    }
+// Store n elements to dst from src, which holds them from byte (dst & 15):
+// 16-byte stores for the whole chunks, element stores at the two ends (the
+// chunks there are shared with the neighbouring tiles).
+template <typename E>
+__device__ __forceinline__ void store_span(E* dst, const unsigned char* src, int n) {
+  const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
+  const int head = (int)(d & 15);
+  unsigned char* base = reinterpret_cast<unsigned char*>(d - head);
+  const int end = head + n * (int)sizeof(E);
+  const int a = (head + 15) & ~15, e = end & ~15;
+  for (int k = (a >> 4) + threadIdx.x; k < (e >> 4); k += blockDim.x)
+    reinterpret_cast<uint4*>(base)[k] = reinterpret_cast<const uint4*>(src)[k];
+  const int lo_end = min(a, end), hi_start = max(lo_end, e);  // a span inside one chunk: all "lo"
+  const int n_lo = (lo_end - head) / (int)sizeof(E), n_hi = (end - hi_start) / (int)sizeof(E);
+  for (int i = threadIdx.x; i < n_lo + n_hi; i += blockDim.x) {
+    const int byte = i < n_lo ? head + i * (int)sizeof(E) : hi_start + (i - n_lo) * (int)sizeof(E);
+    *reinterpret_cast<E*>(base + byte) = *reinterpret_cast<const E*>(src + byte);
   }
-  if (v != nullptr) {
-    const T* vp = v + b * sv.b + (long long)h * sv.h + (long long)w * sv.w;
-#pragma unroll
-    for (int c = 0; c < CMAX; ++c)
-      if (c < C) lg[c] += load(vp + c * sv.c);
-  }
-  if (wmat != nullptr) {
+}
+
+// One block a tile of up to kTile pixels of one (b, h) row. kExact: C ==
+// CMAX, so the class loops unroll with no test of c < C; those instances are
+// held to 32 registers, so that 16 blocks (all 64 warps) fit on an SM (left
+// free, the compiler keeps all of a pixel's loads in flight in several times
+// as many registers, and a fraction of the blocks fit; chip_smoke.py's build
+// phase prints each instance's registers and spills).
+template <typename T, typename TU, int CMAX, bool kExact>
+__global__ void __launch_bounds__(kTile, kExact ? 16 : 1) refine_tail_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = kExact ? CMAX : p.C;
+  const int row = blockIdx.x / p.tiles_per_row;
+  const int b = row / p.H, h = row - b * p.H;
+  const int w0 = (blockIdx.x - row * p.tiles_per_row) * p.tile;
+  const int n = min(p.tile, p.W - w0);
+  const bool has_v = p.v.p != nullptr;
+
+  unsigned char* s_u = smem;
+  unsigned char* s_v = s_u + p.reg_u;
+  unsigned char* s_y = s_v + p.reg_v;
+  unsigned char* s_out = s_y + p.reg_y;
+  unsigned char* s_lab = s_out + p.reg_o;
+  const int hu = stage<TU>(s_u, p.u, offset(p.u, b, h + p.off_h, w0 + p.off_w), n, C);
+  const int hv = has_v ? stage<T>(s_v, p.v, offset(p.v, b, h, w0), n, C) : 0;
+  const int hy = stage<T>(s_y, p.y, offset(p.y, b, h, w0), n, C);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const long long n0 = ((long long)b * p.H + h) * p.W + w0;  // the tile's first output pixel
+  T* out = static_cast<T*>(p.out) + n0 * C;
+  const int px = threadIdx.x;
+  if (px < n) {
+    const TU* up = reinterpret_cast<const TU*>(s_u + hu) + px * C;
+    const T* yp = reinterpret_cast<const T*>(s_y + hy) + px * C;
+    float yv[CMAX];
+    float lg[CMAX];
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) {
       if (c < C) {
-        float acc = 0.f;
-#pragma unroll
-        for (int k = 0; k < CMAX; ++k)
-          if (k < C) acc = fmaf(yv[k], __ldg(wmat + k * C + c), acc);
-        lg[c] += acc;
+        yv[c] = widen(yp[c]);
+        lg[c] = widen(up[c]);
       }
     }
-  }
-  if (bias != nullptr) {
+    if (has_v) {
+      const T* vp = reinterpret_cast<const T*>(s_v + hv) + px * C;
 #pragma unroll
-    for (int c = 0; c < CMAX; ++c)
-      if (c < C) lg[c] += __ldg(bias + c);
-  }
-
-  float m = lg[0];
-#pragma unroll
-  for (int c = 1; c < CMAX; ++c)
-    if (c < C) m = fmaxf(m, lg[c]);
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < C) {
-      lg[c] = expf(lg[c] - m);
-      s += lg[c];
+      for (int c = 0; c < CMAX; ++c)
+        if (c < C) lg[c] += widen(vp[c]);
     }
-  }
-
-  T* op = out + n * C;
-  float best = 0.f;
-  int arg = 0;
+    if (p.wmat != nullptr) {
 #pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < C) {
-      const float r = lg[c] / s;
-      const float q = store(op + c, one_minus_eps * yv[c] + eps * r);
-      if (c == 0 || q > best) {
-        best = q;
-        arg = c;
+      for (int c = 0; c < CMAX; ++c) {
+        if (c < C) {
+          float acc = 0.f;
+#pragma unroll
+          for (int k = 0; k < CMAX; ++k)
+            if (k < C) acc = fmaf(yv[k], __ldg(p.wmat + k * C + c), acc);
+          lg[c] += acc;
+        }
       }
     }
+    if (p.bias != nullptr) {
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c)
+        if (c < C) lg[c] += __ldg(p.bias + c);
+    }
+
+    float m = lg[0];
+#pragma unroll
+    for (int c = 1; c < CMAX; ++c)
+      if (c < C) m = fmaxf(m, lg[c]);
+    float sum = 0.f;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        lg[c] = expf(lg[c] - m);
+        sum += lg[c];
+      }
+    }
+
+    T* op = reinterpret_cast<T*>(s_out + (reinterpret_cast<uintptr_t>(out) & 15)) + px * C;
+    float best = 0.f;
+    int arg = 0;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        const float r = lg[c] / sum;
+        const float q = store(op + c, p.one_minus_eps * yv[c] + p.eps * r);
+        if (c == 0 || q > best) {
+          best = q;
+          arg = c;
+        }
+      }
+    }
+    if (p.labels != nullptr)
+      reinterpret_cast<int*>(s_lab + (reinterpret_cast<uintptr_t>(p.labels + n0) & 15))[px] = arg;
   }
-  if (labels != nullptr) labels[n] = arg;
+  __syncthreads();  // the tile's output is staged
+
+  store_span(out, s_out, n * C);
+  if (p.labels != nullptr) store_span(p.labels + n0, s_lab, n);
 }
 
-template <typename T, int CMAX>
-void launch(const void* u, Strides su, int off_h, int off_w, const void* v, Strides sv,
-            const void* y, Strides sy, const float* wmat, const float* bias, float eps,
-            float one_minus_eps, void* out, int* labels, int B, int H, int W, int C,
-            cudaStream_t stream) {
-  const long long total = (long long)B * H * W;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
-  refine_tail_kernel<T, CMAX><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(u), su, off_h, off_w, static_cast<const T*>(v), sv,
-      static_cast<const T*>(y), sy, wmat, bias, eps, one_minus_eps, static_cast<T*>(out),
-      labels, B, H, W, C);
+inline int round16(int bytes) { return (bytes + 15) & ~15; }
+
+// Shared bytes of one tile of a map of C classes of E: the span, plus the
+// up-to-15-byte head it starts at.
+template <typename E>
+int region(int tile, int C) { return round16(tile * C * (int)sizeof(E)) + 16; }
+
+template <typename T, typename TU, int CMAX, bool kExact = false>
+cudaError_t run(Params p, int grid, cudaStream_t stream) {
+  auto kernel = refine_tail_kernel<T, TU, CMAX, kExact>;
+  // Once an instance a device: allow the most shared memory any launch of
+  // it asks for (every map and labels at CMAX), and give the unified
+  // L1/shared memory to shared memory first (the copies bypass L1,
+  // cp.async.cg, and more resident blocks hide more latency).
+  static std::atomic<unsigned long long> configured{0};  // one bit a device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(configured.load() & bit)) {
+    const int most = region<TU>(kTile, CMAX) + 3 * region<T>(kTile, CMAX) + region<int>(kTile, 1);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, most);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    configured.fetch_or(bit);
+  }
+  p.reg_u = region<TU>(p.tile, p.C);
+  p.reg_y = region<T>(p.tile, p.C);
+  p.reg_v = p.v.p ? p.reg_y : 0;
+  p.reg_o = p.reg_y;
+  const int reg_l = p.labels ? region<int>(p.tile, 1) : 0;
+  const int smem = p.reg_u + p.reg_v + p.reg_y + p.reg_o + reg_l;
+  kernel<<<grid, kTile, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TU>
+cudaError_t run_c(const Params& p, int grid, cudaStream_t stream) {
+  // CamVid's 11 classes unroll exactly; other counts run loops tested
+  // against a run-time C, markedly slower
+  if (p.C == 11) return run<T, TU, 11, true>(p, grid, stream);
+  return p.C <= 16 ? run<T, TU, 16>(p, grid, stream) : run<T, TU, 32>(p, grid, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. v, wmat, bias and labels may be null.
-// out is a contiguous (B, H, W, C) tensor of the same dtype as u, v and y.
+// dtype (y, v, out) and u_dtype: 0 = float32, 1 = bfloat16; u_dtype equals
+// dtype, or is 1 with dtype 0. v, wmat, bias and labels may be null. A map's
+// *_packed flag says that its class stride is 1 and its pixel stride C.
+// out is a contiguous (B, H, W, C) tensor of y's dtype, labels (B, H, W).
+// B * H * W < 2^31.
 extern "C" int refine_tail_launch(
-    int dtype, int B, int H, int W, int C,
-    const void* u, long long su_b, long long su_h, long long su_w, long long su_c,
+    int dtype, int u_dtype, int B, int H, int W, int C,
+    const void* u, long long su_b, long long su_h, long long su_w, long long su_c, int u_packed,
     int off_h, int off_w,
-    const void* v, long long sv_b, long long sv_h, long long sv_w, long long sv_c,
-    const void* y, long long sy_b, long long sy_h, long long sy_w, long long sy_c,
+    const void* v, long long sv_b, long long sv_h, long long sv_w, long long sv_c, int v_packed,
+    const void* y, long long sy_b, long long sy_h, long long sy_w, long long sy_c, int y_packed,
     const void* wmat, const void* bias, float eps, float one_minus_eps,
     void* out, void* labels, void* stream) {
-  if (C < 1 || C > 32 || B < 1 || H < 1 || W < 1 || (dtype != 0 && dtype != 1))
-    return (int)cudaErrorInvalidValue;
-  const Strides su{su_b, su_h, su_w, su_c};
-  const Strides sv{sv_b, sv_h, sv_w, sv_c};
-  const Strides sy{sy_b, sy_h, sy_w, sy_c};
-  const float* wm = static_cast<const float*>(wmat);
-  const float* bs = static_cast<const float*>(bias);
-  int* lab = static_cast<int*>(labels);
+  if (C < 1 || C > 32 || B < 1 || H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  Params p{};
+  p.u = Map{u, su_b, su_h, su_w, su_c, u_packed};
+  p.v = Map{v, sv_b, sv_h, sv_w, sv_c, v_packed};
+  p.y = Map{y, sy_b, sy_h, sy_w, sy_c, y_packed};
+  p.off_h = off_h;
+  p.off_w = off_w;
+  p.wmat = static_cast<const float*>(wmat);
+  p.bias = static_cast<const float*>(bias);
+  p.eps = eps;
+  p.one_minus_eps = one_minus_eps;
+  p.out = out;
+  p.labels = static_cast<int*>(labels);
+  p.H = H;
+  p.W = W;
+  p.C = C;
+  p.tiles_per_row = (W + kTile - 1) / kTile;
+  p.tile = (W + p.tiles_per_row - 1) / p.tiles_per_row;  // balanced tiles along the row
+  const int grid = B * H * p.tiles_per_row;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (C <= 16)
-      launch<float, 16>(u, su, off_h, off_w, v, sv, y, sy, wm, bs, eps, one_minus_eps, out,
-                        lab, B, H, W, C, st);
-    else
-      launch<float, 32>(u, su, off_h, off_w, v, sv, y, sy, wm, bs, eps, one_minus_eps, out,
-                        lab, B, H, W, C, st);
-  } else {
-    if (C <= 16)
-      launch<__nv_bfloat16, 16>(u, su, off_h, off_w, v, sv, y, sy, wm, bs, eps,
-                                one_minus_eps, out, lab, B, H, W, C, st);
-    else
-      launch<__nv_bfloat16, 32>(u, su, off_h, off_w, v, sv, y, sy, wm, bs, eps,
-                                one_minus_eps, out, lab, B, H, W, C, st);
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0 && u_dtype == 0) return (int)run_c<float, float>(p, grid, st);
+  if (dtype == 1 && u_dtype == 1) return (int)run_c<__nv_bfloat16, __nv_bfloat16>(p, grid, st);
+  if (dtype == 0 && u_dtype == 1) return (int)run_c<float, __nv_bfloat16>(p, grid, st);
+  return (int)cudaErrorInvalidValue;
 }

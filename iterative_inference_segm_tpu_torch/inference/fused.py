@@ -298,7 +298,9 @@ def halfres_refinement_scan_folded(
     for _ in range(num_steps):
         pre, sk1 = predense_fn(x)
         u, v, b = _folded_step_terms(fk, pre, sk1, x, encoder=encoder)
-        x = refine_tail(u.to(state_dtype), x, eps, v=v.to(state_dtype), b=b)
+        # bf16 u beside an f32 state is widened in the kernel, not cast here
+        u = u if u.dtype == torch.bfloat16 else u.to(state_dtype)
+        x = refine_tail(u, x, eps, v=v.to(state_dtype), b=b)
     pre, sk1 = predense_fn(x)
     s_k = folded_core_out(
         fk, pre, sk1, encoder=encoder, out_hw=(int(x.shape[1]), int(x.shape[2]))

@@ -12,9 +12,11 @@ with ``r(y) = softmax(logits_fn(y))``. ``logits_fn`` is the DAE forward up
 to its logits (``models.dae.dae_logits`` closed over the params and the
 conditioning taps): the softmax belongs to the step. A score step is one
 launch of the hand-written tail kernel on a CUDA tensor, ``refine_tail(u =
-f32 logits, y, eps)``: softmax, then ``(1 - eps) y + eps r`` rounded once
-(the JAX package's ``y - eps (y - r)``, equal to a few f32 ulps). The
-iterate stays in f32, as in the JAX package. An energy step differentiates
+logits, y, eps)``: the logits in the DAE's compute dtype (bf16 logits are
+widened to f32 in the kernel's registers, exactly as ``.float()`` would,
+with no cast pass), softmax, then ``(1 - eps) y + eps r`` rounded once (the
+JAX package's ``y - eps (y - r)``, equal to a few f32 ulps). The iterate
+stays in f32, as in the JAX package. An energy step differentiates
 the energy through the DAE with ``torch.autograd.grad`` in plain PyTorch
 and launches no kernel; it needs autograd, so it runs under
 ``torch.no_grad`` (``fused.no_autograd``), never ``torch.inference_mode``.
@@ -60,7 +62,7 @@ def _step_gradient(
 
 def _step(logits_fn, y: torch.Tensor, eps: float, mode: str, renorm: str) -> torch.Tensor:
     if mode == "score":
-        y = refine_tail(logits_fn(y).float(), y, eps)
+        y = refine_tail(logits_fn(y), y, eps)
     else:
         y = y - eps * _step_gradient(logits_fn, y, mode=mode)
     if renorm == "softmax":

@@ -166,7 +166,7 @@ def grid_search_eps_k_half(
                     break
                 if fold:
                     u, v, b = _folded_step_terms(fk, pre, sk1, xc, encoder=encoder)
-                    xc = refine_tail(u.to(compute_dtype), xc, eps, v=v.to(compute_dtype), b=b)
+                    xc = refine_tail(u, xc, eps, v=v, b=b)
                 elif mode == "score":
                     u, v = _half_step_terms(dae_params, xc, s)
                     xc = refine_tail(u, xc, eps, v=v)

@@ -13,7 +13,17 @@ It is the port of the TPU prototype kernels
 ``csrc/refine_tail.cu`` (built at first use by ``ops/_build.py``) or raises;
 on a CPU tensor it runs ``refine_tail_reference``, the plain PyTorch version
 of the same function. No path falls back from the kernel to the plain
-version. ``refine_tail.launches`` counts kernel launches.
+version. ``refine_tail.launches`` counts kernel launches;
+``refine_tail.strided_launches`` counts those of them in which a map was not
+row-packed (class stride 1, pixel stride C) and went through the kernel's
+element-by-element staging instead of its 16-byte copies. Set
+``refine_tail.layouts`` to a list and each call appends the layouts of its
+maps to it (``layout``; ``tools/tail_bench.py`` records what the engines
+hand the kernel this way); it is None otherwise.
+
+``u`` has ``y``'s dtype, or is bfloat16 beside a float32 ``y``: the general
+engine hands the kernel the DAE's bf16 logits, which it widens in registers
+exactly as ``.float()`` would, instead of a cast pass over the map.
 """
 
 from __future__ import annotations
@@ -33,10 +43,10 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = (
-    [_I] * 5  # dtype, B, H, W, C
-    + [_P] + [_L] * 4 + [_I] * 2  # u, its strides, crop offsets
-    + [_P] + [_L] * 4  # v
-    + [_P] + [_L] * 4  # y
+    [_I] * 6  # dtype (y, v, out), u's dtype, B, H, W, C
+    + [_P] + [_L] * 4 + [_I] * 3  # u, its strides, row-packed, crop offsets
+    + [_P] + [_L] * 4 + [_I]  # v, its strides, row-packed
+    + [_P] + [_L] * 4 + [_I]  # y, its strides, row-packed
     + [_P, _P, _F, _F, _P, _P, _P]  # W, b, eps, 1-eps, out, labels, stream
 )
 
@@ -51,8 +61,9 @@ def refine_tail_reference(
     b: torch.Tensor | None = None,
     with_labels: bool = False,
 ):
-    """Plain PyTorch version of the kernel: same function, f32 arithmetic,
-    one rounding to ``y.dtype``; labels are the argmax of the rounded map."""
+    """Plain PyTorch version of the kernel: same function, f32 arithmetic
+    (each map widened by ``.float()``), one rounding to ``y.dtype``; labels
+    are the argmax of the rounded map."""
     h, wd = int(y.shape[1]), int(y.shape[2])
     y32 = y.float()
     logits = crop_to(u, h, wd).float()
@@ -83,10 +94,12 @@ def _check(u, y, v, w, b) -> None:
         raise ValueError(f"refine_tail: u {tuple(u.shape)} does not match y {tuple(y.shape)}")
     if int(u.shape[1]) < h or int(u.shape[2]) < wd:
         raise ValueError(f"refine_tail: u {tuple(u.shape)} smaller than y {tuple(y.shape)}")
+    if not (u.dtype == y.dtype or (u.dtype, y.dtype) == (torch.bfloat16, torch.float32)):
+        raise TypeError(f"refine_tail: u is {u.dtype}, y is {y.dtype} (u takes y's dtype, or bf16 beside f32)")
+    if v is not None and v.dtype != y.dtype:
+        raise TypeError(f"refine_tail: v is {v.dtype}, y is {y.dtype}")
     maps = [("u", u)] + ([("v", v)] if v is not None else [])
     for name, t in maps:
-        if t.dtype != y.dtype:
-            raise TypeError(f"refine_tail: {name} is {t.dtype}, y is {y.dtype}")
         if t.device != y.device:
             raise ValueError(f"refine_tail: {name} on {t.device}, y on {y.device}")
     if v is not None and v.shape != y.shape:
@@ -105,6 +118,22 @@ def _check(u, y, v, w, b) -> None:
         raise ValueError("refine_tail: more than 2^31 pixels")
 
 
+def row_packed(t: torch.Tensor) -> bool:
+    """Class stride 1 and pixel stride C (strides of size-1 axes aside): a
+    run of pixels of one row is one contiguous span of memory."""
+    _, _, wd, c = t.shape
+    return (c == 1 or t.stride(3) == 1) and (wd == 1 or t.stride(2) == c)
+
+
+def layout(t: torch.Tensor | None) -> dict | None:
+    """A map's shape, strides, dtype and row-packing (None for an absent
+    map)."""
+    if t is None:
+        return None
+    return {"shape": tuple(t.shape), "stride": tuple(t.stride()), "dtype": str(t.dtype).removeprefix("torch."),
+            "row_packed": row_packed(t)}
+
+
 def _launch(u, y, eps, v, w, b, with_labels):
     lib = _build.load("refine_tail")
     fn = lib.refine_tail_launch
@@ -117,13 +146,15 @@ def _launch(u, y, eps, v, w, b, with_labels):
         torch.empty((bsz, h, wd), dtype=torch.int32, device=y.device) if with_labels else None
     )
     oh, ow = (int(u.shape[1]) - h) // 2, (int(u.shape[2]) - wd) // 2
+    pu, py = row_packed(u), row_packed(y)
+    pv = v is None or row_packed(v)
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            _DTYPE_CODE[y.dtype], bsz, h, wd, c,
-            u.data_ptr(), *u.stride(), oh, ow,
-            None if v is None else v.data_ptr(), *(v.stride() if v is not None else (0,) * 4),
-            y.data_ptr(), *y.stride(),
+            _DTYPE_CODE[y.dtype], _DTYPE_CODE[u.dtype], bsz, h, wd, c,
+            u.data_ptr(), *u.stride(), pu, oh, ow,
+            None if v is None else v.data_ptr(), *(v.stride() if v is not None else (0,) * 4), pv,
+            y.data_ptr(), *y.stride(), py,
             None if w is None else w.data_ptr(), None if b is None else b.data_ptr(),
             float(eps), float(1.0 - eps),
             out.data_ptr(), None if labels is None else labels.data_ptr(), stream,
@@ -131,6 +162,8 @@ def _launch(u, y, eps, v, w, b, with_labels):
     if rc != 0:
         raise RuntimeError(f"refine_tail: kernel launch failed with CUDA error {rc}")
     refine_tail.launches += 1
+    if not (pu and pv and py):
+        refine_tail.strided_launches += 1
     return (out, labels) if with_labels else out
 
 
@@ -145,10 +178,13 @@ def refine_tail(
     with_labels: bool = False,
 ):
     """Fused tail (see module doc). ``u``: (B, Hu, Wu, C), any strides, centre-
-    cropped to y's (H, W); ``y``, ``v``: (B, H, W, C), any strides, same dtype
-    as ``u`` (float32 or bfloat16); ``w``: (C, C) and ``b``: (C,), contiguous
-    float32. Returns ``y'`` (contiguous, y.dtype) or ``(y', labels)``."""
+    cropped to y's (H, W); ``y``, ``v``: (B, H, W, C), any strides, float32
+    or bfloat16, ``v`` in y's dtype, ``u`` in y's dtype or bfloat16 beside a
+    float32 ``y``; ``w``: (C, C) and ``b``: (C,), contiguous float32.
+    Returns ``y'`` (contiguous, y.dtype) or ``(y', labels)``."""
     _check(u, y, v, w, b)
+    if refine_tail.layouts is not None:
+        refine_tail.layouts.append({"u": layout(u), "v": layout(v), "y": layout(y), "labels": with_labels})
     if y.device.type == "cpu":
         return refine_tail_reference(u, y, eps, v=v, w=w, b=b, with_labels=with_labels)
     if y.device.type != "cuda":
@@ -157,3 +193,5 @@ def refine_tail(
 
 
 refine_tail.launches = 0
+refine_tail.strided_launches = 0
+refine_tail.layouts = None

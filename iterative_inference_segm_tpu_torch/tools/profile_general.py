@@ -7,7 +7,8 @@ For each mode (score, energy) it prints the CUDA-event time per forward
 over ITERS calls, then runs ITERS calls under ``torch.profiler`` and prints
 the device time per forward (the sum of the traced device operations), the
 idle share (1 - device time / event time), the device operations per
-forward, and the TOP operations by device time with their shares. It
+forward, the TOP operations by device time with their shares, and the
+refinement-tail kernel's own line. It
 raises if the profiler traced no device time.
 
 Run on a card:
@@ -24,6 +25,7 @@ import torch
 
 ITERS = 5
 TOP = 12
+TAIL = "refine_tail_kernel"  # reported whether or not it is among the TOP
 BATCH = 4
 K_STEPS = 5
 
@@ -45,6 +47,7 @@ def summarize(ops: list[tuple[str, float]], iters: int, event_ms: float) -> dict
         "idle": 1.0 - device_ms / event_ms,
         "ops": len(ops) / iters,
         "top": [(name, us / 1e3 / iters, us / total_us) for name, us in top],
+        "tail": [(name, us / 1e3 / iters, us / total_us) for name, us in by_name.items() if TAIL in name],
     }
 
 
@@ -98,6 +101,8 @@ def main() -> int:
               f"({r['idle']:.1%} idle); {r['ops']:.0f} device operations a forward", flush=True)
         for name, ms, share in r["top"]:
             print(f"   {ms:8.4f} ms {share:6.1%}  {name[:110]}", flush=True)
+        for name, ms, share in r["tail"]:
+            print(f"   refine_tail: {ms:8.4f} ms {share:6.1%}  {name[:110]}", flush=True)
     return 0
 
 

@@ -93,16 +93,21 @@ def launches_per_sweep() -> dict[str, int]:
     return {"fma_chain": fma, "pattern_softmax": per * len(DTYPES)}
 
 
-def fp32_fma_peak(device) -> tuple[float, str]:
-    """SMs x 128 x max SM clock, in multiply-adds per second, and how it was
-    read: arithmetic from the card's own numbers, not a measurement."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+def max_sm_clock_mhz(device) -> float:
+    """The card's maximum SM clock, as nvidia-smi reads it."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
          f"--id={torch.device(device).index or 0}"],
         capture_output=True, text=True, check=True, timeout=60,
     )
-    mhz = float(out.stdout.strip().splitlines()[0])
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def fp32_fma_peak(device) -> tuple[float, str]:
+    """SMs x 128 x max SM clock, in multiply-adds per second, and how it was
+    read: arithmetic from the card's own numbers, not a measurement."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = max_sm_clock_mhz(device)
     return sms * FP32_LANES_PER_SM * mhz * 1e6, f"{sms} SMs x {FP32_LANES_PER_SM} x {mhz:.0f} MHz"
 
 

@@ -107,6 +107,22 @@ def test_only_score_steps_reach_the_kernel(general, monkeypatch, mode):
     assert len(calls) == (3 if mode == "score" else 0)
 
 
+@pytest.mark.parametrize("compute_dtype", [torch.float32, torch.bfloat16])
+def test_score_steps_hand_the_logits_over_uncast(general, compute_dtype):
+    """The kernel widens bf16 logits itself: ``refinement_scan`` gives bit
+    for bit the y_K of the same steps with the logits cast to f32 first."""
+    def tfn(y):
+        return tdae.dae_logits(general["td"], y, general["th"], depth=4, compute_dtype=compute_dtype)
+
+    with torch.inference_mode():
+        got = tit.refinement_scan(tfn, general["ty0"], eps=EPS, num_steps=3)
+        want = general["ty0"]
+        for _ in range(3):
+            want = tit.refine_tail(tfn(want).float(), want, EPS)
+    assert tfn(general["ty0"]).dtype == compute_dtype and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
 def test_energy_refuses_inference_mode(general):
     _, tfn = _fns(general)
     with torch.inference_mode(), pytest.raises(RuntimeError, match="no_grad"):

@@ -171,5 +171,5 @@ print(" ".join(mods))
     walked = set(out.stdout.split())
     assert len(walked) >= 34  # every module was walked, these among them:
     for mod in ("inference.iterative", "inference.search", "ops.vpu_probe", "tools.vpu_probe",
-                "tools.profile_general", "scripts.iterative_inference"):
+                "tools.profile_general", "tools.tail_bench", "scripts.iterative_inference"):
         assert "iterative_inference_segm_tpu_torch." + mod in walked, mod

@@ -161,6 +161,39 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     assert torch.equal(labels, got.argmax(-1).to(torch.int32))
 
 
+@pytest.mark.parametrize("u_hw", [(24, 32), (27, 37)])
+def test_reference_takes_bf16_u_beside_f32_y(jx, u_hw):
+    """bf16 logits beside an f32 map (the general engine's step): bit-equal
+    to the same call with ``u.float()``, and the JAX composition on the
+    widened logits at the f32 tolerance."""
+    rng = np.random.default_rng(7)
+    u = torch.from_numpy((rng.normal(size=(2, *u_hw, C)) * 3).astype(np.float32)).to(torch.bfloat16)
+    y = np.array(jx.jax.nn.softmax(rng.normal(size=(2, 24, 32, C)).astype(np.float32) * 2, -1))
+    got, labels = refine_tail_reference(u, torch.from_numpy(y), EPS, with_labels=True)
+    want, want_labels = refine_tail_reference(u.float(), torch.from_numpy(y), EPS, with_labels=True)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, want) and torch.equal(labels, want_labels)
+    routed = refine_tail(u, torch.from_numpy(y), EPS)  # the wrapper takes the pair on the CPU
+    assert torch.equal(routed, got)
+    jax_want = _jax_composition(jx, u.float().numpy(), np.zeros_like(y), y, EPS, jx.jnp.float32)
+    np.testing.assert_allclose(got.numpy(), jax_want, rtol=1e-6, atol=1e-6)
+
+
+def testrow_packed_reads_the_layouts_the_engines_hand_over():
+    """NHWC views of channels_last tensors, cropped or not, are row-packed;
+    a map whose classes or pixels are strided is not."""
+    from iterative_inference_segm_tpu_torch.ops.refine_tail import row_packed
+
+    nchw = torch.zeros((2, C, 10, 14)).to(memory_format=torch.channels_last)
+    nhwc = nchw.permute(0, 2, 3, 1)
+    assert row_packed(nhwc) and row_packed(nhwc[:, 1:9, 2:12])
+    assert row_packed(torch.zeros((2, 10, 14, C))[:, :, 3:])
+    assert not row_packed(torch.zeros((2, C, 10, 14)).permute(0, 2, 3, 1))  # NCHW memory
+    assert not row_packed(torch.zeros((2, 10, 14, 2 * C))[..., ::2])
+    assert not row_packed(torch.zeros((2, 10, 28, C))[:, :, ::2])
+    assert row_packed(torch.zeros((2, 10, 1, C)).as_strided((2, 10, 1, C), (10 * C, C, 999, 1)))
+
+
 def _maps(dtype=torch.float32, hw=(4, 6), u_hw=None, c=C):
     g = torch.Generator().manual_seed(5)
     y = torch.softmax(torch.randn((2, *hw, c), generator=g), -1).to(dtype)
@@ -170,8 +203,8 @@ def _maps(dtype=torch.float32, hw=(4, 6), u_hw=None, c=C):
 
 @pytest.mark.parametrize(
     "case",
-    ["float16", "float64", "mixed", "v_shape", "u_small", "u_batch", "too_many_classes",
-     "rank", "w_dtype", "w_shape", "b_shape", "empty", "meta_device"],
+    ["float16", "float64", "mixed", "u_float16", "v_bfloat16", "v_shape", "u_small", "u_batch",
+     "too_many_classes", "rank", "w_dtype", "w_shape", "b_shape", "empty", "meta_device"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(case):
     u, y = _maps()
@@ -180,8 +213,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         u, y = u.half(), y.half()
     elif case == "float64":
         u, y = u.double(), y.double()
-    elif case == "mixed":
-        u = u.to(torch.bfloat16)
+    elif case == "mixed":  # f32 u beside a bf16 y (bf16 u beside an f32 y is taken)
+        y = y.to(torch.bfloat16)
+    elif case == "u_float16":
+        u = u.half()
+    elif case == "v_bfloat16":  # v keeps y's dtype even where u may be bf16
+        u, kw["v"] = u.to(torch.bfloat16), torch.zeros(y.shape, dtype=torch.bfloat16)
     elif case == "v_shape":
         kw["v"] = torch.zeros((2, 4, 5, C))
     elif case == "u_small":
@@ -213,26 +250,46 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# (variant, y's (H, W), u's (H, W) or None, classes); u wider by 1, 3 and 5
+# pixels puts its row spans at 2-byte alignment (bf16) in a 16-byte chunk;
+# W=200 is no multiple of the kernel's tile, and W=1 a one-pixel row.
+CARD_CASES = [
+    ("v", (45, 61), None, C), ("crop", (45, 61), (48, 66), C), ("w", (45, 61), None, C),
+    ("labels", (45, 61), None, C), ("u_bf16", (45, 61), (46, 64), C),
+    ("crop", (7, 129), (8, 130), C), ("crop", (7, 129), (10, 132), C), ("crop", (7, 129), (12, 134), C),
+    ("labels", (5, 200), (6, 203), C), ("labels", (9, 1), None, C),
+    ("labels", (6, 40), (7, 43), 1), ("labels", (6, 40), (7, 43), 16),
+    ("labels", (6, 40), (7, 43), 17), ("labels", (6, 40), (7, 43), 32),
+    ("strided", (45, 61), (48, 66), C),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("variant", ["v", "crop", "w", "labels"])
-def test_kernel_matches_plain_version_on_card(cuda_device, dtype, variant):
-    u, y = _maps(dtype, hw=(45, 61), u_hw=(48, 66) if variant == "crop" else None)
+@pytest.mark.parametrize("variant,hw,u_hw,c", CARD_CASES)
+def test_kernel_matches_plain_version_on_card(cuda_device, dtype, variant, hw, u_hw, c):
+    u, y = _maps(dtype, hw=hw, u_hw=u_hw, c=c)
     kw = {"v": torch.randn(y.shape, generator=torch.Generator().manual_seed(6)).to(dtype)}
     if variant == "w":
-        kw = {"w": torch.randn((C, C)) * 0.5, "b": torch.randn((C,))}
+        kw = {"w": torch.randn((c, c)) * 0.5, "b": torch.randn((c,))}
     if variant == "labels":
         kw["with_labels"] = True
+    if variant == "u_bf16":  # the general engine's bf16 logits beside an f32 map
+        u, y, kw = u.to(torch.bfloat16), y.float(), {}
+    if variant == "strided":  # u and v as NCHW memory seen through NHWC strides
+        u = u.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+        kw["v"] = kw["v"].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     dev = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
-    before = refine_tail.launches
+    before, strided = refine_tail.launches, refine_tail.strided_launches
     got = refine_tail(u.to(cuda_device), y.to(cuda_device), EPS, **dev)
     torch.cuda.synchronize()
     assert refine_tail.launches == before + 1
+    assert refine_tail.strided_launches == strided + (variant == "strided")
     want = refine_tail_reference(u, y, EPS, **kw)
     if variant == "labels":
         (got, labels), (want, want_labels) = got, want
         assert labels.dtype == torch.int32
         assert torch.equal(labels.cpu(), got.cpu().float().argmax(-1).to(torch.int32))
         assert (labels.cpu() == want_labels).float().mean() >= 0.999
-    tol = 1e-5 if dtype == torch.float32 else 2.0**-8
+    tol = 1e-5 if y.dtype == torch.float32 else 2.0**-8
     assert (got.cpu().float() - want.float()).abs().max() <= tol

@@ -218,6 +218,9 @@ def test_profile_summary_and_refusals():
     assert got["ops"] == 1.5
     assert got["top"] == [("conv", pytest.approx(0.4), pytest.approx(0.8)),
                           ("relu", pytest.approx(0.1), pytest.approx(0.2))]
+    assert got["tail"] == []
+    tail = prof.summarize([("conv", 600.0), (prof.TAIL + "<f>", 200.0)], iters=2, event_ms=0.8)["tail"]
+    assert tail == [(prof.TAIL + "<f>", pytest.approx(0.1), pytest.approx(0.25))]
     with pytest.raises(RuntimeError, match="no device time"):
         prof.summarize([], iters=1, event_ms=1.0)
     assert prof.main() == 1 or torch.cuda.is_available()  # no card: refuses, prints no result
