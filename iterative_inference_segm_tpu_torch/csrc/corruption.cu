@@ -19,26 +19,43 @@
 // all in unsigned 32-bit arithmetic. The TPU kernels computed 128 lanes and
 // masked the padding lanes to -inf; those contribute exactly 0 to the
 // softmax, so only the C real classes are computed and stored here.
-// Arithmetic is f32 with the accurate logf/cosf/sqrtf/expf (the build has no
-// --use_fast_math) and explicit __fmul_rn/__fadd_rn where the TPU kernel
-// rounds twice, so that no multiply-add is contracted and the result agrees
-// with the plain version (ops/corruption_kernel.py) to a few ulps.
+// Arithmetic is f32 with the accurate logf/cosf/sqrtf/expf and the IEEE
+// divide (the build has no --use_fast_math) and explicit __fmul_rn/__fadd_rn
+// where the TPU kernel rounds twice, so that no multiply-add is contracted;
+// the softmax denominator is summed in class order. The plain version
+// (ops/corruption_kernel.py) computes the same on the card bit for bit.
 //
-// What bounds it: at the training shape (32 x 224 x 224 pixels, C = 11) the
-// kernel writes 71 MB of f32 (21 us at 3.35 TB/s) and computes, for each of
-// 17.7 M elements, two murmur3 finalizers, a logf, a cosf, a sqrtf and an
-// expf: about 100 instructions per element, most of them in the
-// special-function polynomials. The special functions, not the stores, are
-// expected to bound it; chip_smoke.py prints its time beside that of a
-// plain fill of the same output (the store floor).
+// What bounds it: the instructions it issues. At the training crop (32 x
+// 224 x 224 pixels, C = 11) K1 writes 70.6 MB of f32 (21 us at an H100
+// SXM's 3.35 TB/s), but each of its 17.7 M elements takes two murmur3
+// finalizers and the fast paths of logf, sqrtf, cosf, expf and the IEEE
+// divide: 135 operations (chip_smoke.py's CORRUPT_OPS, read off this
+// kernel's SASS, a multiply-add counted as 2), 36 us at the card's f32 rate,
+// issued as about 118 instructions an element (the special functions' slow
+// paths, replicated for each class, are almost never taken). K2 reads 70.6
+// MB more and is bound by its bytes as much as by its operations.
 //
-// What the design does about it: one pass, nothing but the labels (or the
-// clean map) read and the result written once; no one-hot, noise or logits
-// tensor in device memory. One thread per pixel keeps its C logits and
-// exponentials in registers (unrolled to 16 or 32 classes, predicated on C).
-// It is the simple, correct form: each thread stores C floats at a stride of
-// 4C bytes; staging the stores through shared memory so a warp writes one
-// contiguous span is later work.
+// What the design does about it. The first form (one thread a pixel, loops
+// unrolled to 16 classes and tested against a run-time C, each thread
+// storing its C floats at a stride of 4C bytes) split each warp's stores
+// over 11 times the L2 transactions of a contiguous write, and took 2.5
+// times as long as this one. Here a block takes a tile of kTile pixels, one
+// a thread. Each thread writes its results to the tile in shared memory (at
+// a stride of C words: conflict-free for an odd C), and the block stores the
+// tile, one contiguous span of the output, with 16-byte stores and a scalar
+// tail at the ragged end. K2 stages its tile of probs in the same way, with
+// 16-byte cp.async copies (element loads where the caller's probs are not
+// 16-byte aligned). CamVid's 11 classes have an exact instance: its class
+// loops unroll with no test of c < C, so every issued instruction serves a
+// real class, and it is held to 32 registers, so that 16 blocks (all 64
+// warps) fit on an SM, a pixel's 11 independent noise chains covering each
+// other's latency. Every other C takes a general instance, right but not
+// tuned. Measured on an H100 at the training crop (PERF.md), against the
+// first form's time: the staging alone, with the general instance at
+// C = 11, 0.68 (K1) and 0.76 (K2); the exact instance alone 0.96 and 0.98;
+// both 0.39 and 0.40. One element a thread over the flat n * C index, which
+// keeps every lane on a live element for any C but takes each pixel's max
+// and sum through shared memory, took 0.54 and 0.52, and was dropped.
 //
 // Plain C interface (loaded with ctypes by ops/corruption_kernel.py); each
 // launch returns cudaGetLastError() so the wrapper can raise on a refused
@@ -51,6 +68,10 @@ namespace {
 
 constexpr uint32_t kLanes = 128;  // the TPU kernels' padded class width
 constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi), as JAX rounds it
+constexpr int kTile = 128;        // pixels a block, one a thread
+constexpr int kMaxClasses = 32;
+constexpr int kExactClasses = 11;  // CamVid
+constexpr int kExactBlocks = 16;   // resident blocks an SM the exact instance is held to
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t x) {
   x ^= x >> 16;
@@ -72,71 +93,117 @@ __device__ __forceinline__ float gauss(uint32_t ctr, uint32_t seed, uint32_t see
   return __fmul_rn(sqrtf(__fmul_rn(-2.0f, logf(u1))), cosf(__fmul_rn(kTwoPi, u2)));
 }
 
-// kOneHot: the clean signal is one_hot(labels[p]); otherwise probs[p, :].
-template <bool kOneHot, int CMAX>
-__global__ void __launch_bounds__(256) corrupt_kernel(
-    const int* __restrict__ labels, const float* __restrict__ probs, long long n, int C,
-    uint32_t seed, float sigma, float* __restrict__ out) {
-  const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
-  const uint32_t base = (uint32_t)p * kLanes;  // mod 2^32, as the TPU kernel's counter
-  const uint32_t seed2 = seed ^ 0xDEADBEEFu;
-  const int lab = kOneHot ? __ldg(labels + p) : 0;
-  const float* pp = kOneHot ? nullptr : probs + p * C;
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
 
-  float lg[CMAX];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < C) {
-      const float clean = kOneHot ? (lab == c ? 1.0f : 0.0f) : __ldg(pp + c);
-      lg[c] = __fadd_rn(clean, __fmul_rn(sigma, gauss(base + (uint32_t)c, seed, seed2)));
-    }
+// Copy ne floats of src into the tile: 16-byte cp.async copies where src
+// is 16-byte aligned (the tail element by element), else element loads.
+__device__ __forceinline__ void stage_in(float* tile, const float* __restrict__ src, int ne) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int chunks = ne >> 2;
+    for (int k = threadIdx.x; k < chunks; k += blockDim.x) cp_async16(tile + 4 * k, src + 4 * k);
+    for (int i = 4 * chunks + threadIdx.x; i < ne; i += blockDim.x) tile[i] = __ldg(src + i);
+    cp_async_wait_all();
+  } else {
+    for (int i = threadIdx.x; i < ne; i += blockDim.x) tile[i] = __ldg(src + i);
   }
-  float m = lg[0];
-#pragma unroll
-  for (int c = 1; c < CMAX; ++c)
-    if (c < C) m = fmaxf(m, lg[c]);
-  float s = 0.0f;
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < C) {
-      lg[c] = expf(lg[c] - m);
-      s += lg[c];
-    }
+}
+
+// Store the tile's ne floats to dst (16-byte aligned): 16-byte stores, the
+// tail element by element.
+__device__ __forceinline__ void store_out(float* __restrict__ dst, const float* tile, int ne) {
+  const int chunks = ne >> 2;
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x)
+    reinterpret_cast<float4*>(dst)[k] = reinterpret_cast<const float4*>(tile)[k];
+  for (int i = 4 * chunks + threadIdx.x; i < ne; i += blockDim.x) dst[i] = tile[i];
+}
+
+// kOneHot: the clean signal is one_hot(labels[p]); otherwise probs[p, :].
+// kExact: C == CMAX, so the class loops unroll with no test of c < C.
+template <bool kOneHot, int CMAX, bool kExact>
+__global__ void __launch_bounds__(kTile, kExact ? kExactBlocks : 1) corrupt_kernel(
+    const int* __restrict__ labels, const float* __restrict__ probs, long long n, int n_classes,
+    uint32_t seed, float sigma, float* __restrict__ out) {
+  __shared__ __align__(16) float tile[kTile * CMAX];
+  const int C = kExact ? CMAX : n_classes;
+  const long long p0 = (long long)blockIdx.x * kTile;  // the tile's first pixel
+  const int np = (int)min((long long)kTile, n - p0);
+  const int ne = np * C;
+  const long long e0 = p0 * C;  // its first element: 16-byte aligned (kTile * 4 = 512 bytes)
+  if (!kOneHot) {
+    stage_in(tile, probs + e0, ne);
+    __syncthreads();
   }
-  float* op = out + p * C;
+
+  const int px = threadIdx.x;
+  if (px < np) {
+    const long long p = p0 + px;
+    const uint32_t base = (uint32_t)p * kLanes;  // mod 2^32, as the TPU kernel's counter
+    const uint32_t seed2 = seed ^ 0xDEADBEEFu;
+    const int lab = kOneHot ? __ldg(labels + p) : 0;
+    float* row = tile + px * C;
+    float lg[CMAX];
 #pragma unroll
-  for (int c = 0; c < CMAX; ++c)
-    if (c < C) op[c] = lg[c] / s;
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        const float clean = kOneHot ? (lab == c ? 1.0f : 0.0f) : row[c];
+        lg[c] = __fadd_rn(clean, __fmul_rn(sigma, gauss(base + (uint32_t)c, seed, seed2)));
+      }
+    }
+    float m = lg[0];
+#pragma unroll
+    for (int c = 1; c < CMAX; ++c)
+      if (c < C) m = fmaxf(m, lg[c]);
+    float s = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        lg[c] = expf(lg[c] - m);
+        s += lg[c];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) row[c] = lg[c] / s;
+  }
+  __syncthreads();  // the tile is staged
+  store_out(out + e0, tile, ne);
 }
 
 template <bool kOneHot>
 int launch(const int* labels, const float* probs, long long n, int C, unsigned seed,
            float sigma, float* out, void* stream) {
-  if (n < 1 || C < 1 || C > 32) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
+  if (n < 1 || C < 1 || C > kMaxClasses) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(out) & 15) return (int)cudaErrorMisalignedAddress;
+  const long long blocks = (n + kTile - 1) / kTile;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C <= 16)
-    corrupt_kernel<kOneHot, 16><<<(unsigned)blocks, threads, 0, st>>>(
+  if (C == kExactClasses)
+    corrupt_kernel<kOneHot, kExactClasses, true><<<(unsigned)blocks, kTile, 0, st>>>(
         labels, probs, n, C, seed, sigma, out);
   else
-    corrupt_kernel<kOneHot, 32><<<(unsigned)blocks, threads, 0, st>>>(
+    corrupt_kernel<kOneHot, kMaxClasses, false><<<(unsigned)blocks, kTile, 0, st>>>(
         labels, probs, n, C, seed, sigma, out);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K1. labels: n contiguous int32; out: contiguous (n, C) float32.
+// K1. labels: n contiguous int32; out: contiguous (n, C) float32, 16-byte
+// aligned.
 extern "C" int corrupt_onehot_launch(const void* labels, long long n, int C, unsigned seed,
                                      float sigma, void* out, void* stream) {
   return launch<true>(static_cast<const int*>(labels), nullptr, n, C, seed, sigma,
                       static_cast<float*>(out), stream);
 }
 
-// K2. probs: contiguous (n, C) float32; out: contiguous (n, C) float32.
+// K2. probs: contiguous (n, C) float32; out: contiguous (n, C) float32,
+// 16-byte aligned.
 extern "C" int corrupt_probs_launch(const void* probs, long long n, int C, unsigned seed,
                                     float sigma, void* out, void* stream) {
   return launch<false>(nullptr, static_cast<const float*>(probs), n, C, seed, sigma,

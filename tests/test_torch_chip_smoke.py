@@ -1,0 +1,61 @@
+"""The CPU side of ``chip_smoke.py`` phase 7: reading the build's register
+report and kernel names, and the K1/K2 edge cases it holds on the card (run
+here through the wrappers, which take the plain versions on the CPU)."""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import chip_smoke  # noqa: E402
+from iterative_inference_segm_tpu_torch.ops import corruption_kernel as ck  # noqa: E402
+
+EXACT_K1 = "_ZN47_GLOBAL__N__575d5534_14_corruption_cu_c5d6d6a714corrupt_kernelILb1ELi11ELb1EEEvPKiPKfxijfPf"
+GENERAL_K2 = "_ZN47_GLOBAL__N__575d5534_14_corruption_cu_c5d6d6a714corrupt_kernelILb0ELi32ELb0EEEvPKiPKfxijfPf"
+
+
+def test_kernel_name_keeps_the_template_arguments():
+    assert chip_smoke.kernel_name(EXACT_K1) == "corrupt_kernel<Lb1ELi11ELb1>"
+    assert chip_smoke.kernel_name(GENERAL_K2) == "corrupt_kernel<Lb0ELi32ELb0>"
+    assert chip_smoke.kernel_name("k_plain") == "k_plain"
+
+
+def test_ptxas_entries_reads_registers_and_spills_per_instance(tmp_path):
+    log = tmp_path / "libcorruption.log"
+    log.write_text(
+        f"ptxas info    : Compiling entry function '{GENERAL_K2}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {GENERAL_K2}\n"
+        "    32 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 76 registers, used 1 barriers, 32 bytes cumulative stack size, 16384 bytes smem\n"
+        f"ptxas info    : Compiling entry function '{EXACT_K1}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {EXACT_K1}\n"
+        "    0 bytes stack frame, 20 bytes spill stores, 24 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 5632 bytes smem\n"
+    )
+    assert chip_smoke.ptxas_entries(log) == {
+        "corrupt_kernel<Lb0ELi32ELb0>": (76, "spill 0/0 B"),
+        "corrupt_kernel<Lb1ELi11ELb1>": (32, "spill 20/24 B"),
+    }
+    assert chip_smoke.ptxas_summary(log) == (
+        "corrupt_kernel<Lb0ELi32ELb0>: 76 regs, spill 0/0 B | corrupt_kernel<Lb1ELi11ELb1>: 32 regs, spill 20/24 B"
+    )
+
+
+@pytest.mark.parametrize("sigma", [0.0, 1.0])
+def test_corrupt_edge_cases_cover_both_instances_and_the_staging_paths(sigma):
+    cases = chip_smoke.corrupt_edge_cases("cpu", torch.Generator().manual_seed(0))
+    names = [c[0] for c in cases]
+    assert names == [f"{w} C={c}" for c in (1, 2, 11, 16, 17, 32) for w in ("onehot", "probs")] + [
+        "probs bf16", "probs unaligned"]
+    for name, fn, ref, src, kw in cases:
+        assert fn in (ck.corrupt_onehot, ck.corrupt_probs)
+        n_px = 3 * 45 * 61
+        assert n_px % 128 == 43  # the last tile of the kernel is ragged
+        if fn is ck.corrupt_onehot:
+            c = kw["n_classes"]
+            assert int(src.min()) < 0 and int(src.max()) >= c  # void on both sides
+        if name == "probs bf16":
+            assert src.dtype == torch.bfloat16
+        if name == "probs unaligned":
+            assert src.data_ptr() % 16 != 0
+        got = fn(src, 7, sigma=sigma, **kw)
+        assert torch.equal(got, ref(src, 7, sigma=sigma, **kw))

@@ -228,22 +228,48 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _unaligned(t):
+    """``t`` as a view that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:].copy_(t.reshape(-1))
+    return buf[1:].view(t.shape)
+
+
+# (kernel, classes, variant): C = 11 takes the exact instance, every other C
+# the general one; 3 x 45 x 61 = 8235 pixels leave a last tile of 43 of the
+# 128-pixel tile (473 elements at C = 11: the stores' scalar tail runs);
+# labels run from -2 to C + 1 (void below 0 and at or above C); probs in
+# bf16 (the wrapper widens them) or at an address that is not 16-byte
+# aligned (the kernel stages them element by element).
+CARD_CASES = [(w, c, "f32") for w in ("onehot", "probs") for c in (1, 2, 11, 16, 17, 32)] + [
+    ("probs", 11, "bf16"), ("probs", 2, "bf16"), ("probs", 11, "unaligned"),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sigma", [0.0, 1.0])
-@pytest.mark.parametrize("which", ["onehot", "probs"])
-def test_kernels_match_plain_versions_on_card(cuda_device, sigma, which):
+@pytest.mark.parametrize("which,n_classes,variant", CARD_CASES)
+def test_kernels_match_plain_versions_on_card(cuda_device, sigma, which, n_classes, variant):
+    """Bit for bit: the kernel and the plain version run the same f32
+    operations in the same order, and on the card the same libm."""
+    shape = (3, 45, 61)
     if which == "onehot":
-        src = torch.from_numpy(_labels(shape=(3, 45, 61)))
+        src = torch.from_numpy(_labels(shape=shape, hi=n_classes + 2)).to(cuda_device)
         fn, ref = ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference
-        kw = {"n_classes": C, "sigma": sigma}
+        kw = {"n_classes": n_classes, "sigma": sigma}
     else:
-        src = torch.from_numpy(_probs(shape=(3, 45, 61, C)))
+        src = torch.from_numpy(_probs(shape=(*shape, n_classes))).to(cuda_device)
+        if variant == "bf16":
+            src = src.to(torch.bfloat16)
+        elif variant == "unaligned":
+            src = _unaligned(src)
+            assert src.data_ptr() % 16 == 4
         fn, ref = ck.corrupt_probs, ck.corrupt_probs_kernel_reference
         kw = {"sigma": sigma}
     before = fn.launches
-    got = fn(src.to(cuda_device), 0xDEADBEEF, **kw)
+    got = fn(src, 0xDEADBEEF, **kw)
     torch.cuda.synchronize()
     assert fn.launches == before + 1
     want = ref(src, 0xDEADBEEF, **kw)
     assert got.dtype == torch.float32 and got.shape == want.shape
-    assert (got.cpu() - want).abs().max() <= SIGMA_TOL
+    assert torch.equal(got, want)
