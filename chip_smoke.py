@@ -25,7 +25,10 @@ Phases:
                 bound, with the share of the bound; then edge cases (crop
                 offsets of 1, 3, 5 pixels, a ragged row, C in 1..32, y.W + b,
                 and maps that are not row-packed, which must count as
-                strided launches)
+                strided launches); the wide instance at C = 33, 64 and 128
+                (also with y.W + b, bf16 logits and a strided map), timed
+                cold at C = 64 and 128 on one 360x480 frame; C = 129 must
+                raise
  4. serve    -- Predictor(engine="half") answers 3 requests (3, 8, 13
                 images at 360x480, bf16, K=5) over seeded random weights at
                 full width (FCN-8 fc 4096, C=11); the kernel's launch count
@@ -36,9 +39,11 @@ Phases:
                 their plain versions at the training shapes, sigma 0 and 1,
                 timed warm and cold (L2 flushed) against their bound, beside
                 a plain fill of the same output; bit-equal at the edge cases
-                (C in 1..32, a ragged last tile, void labels, bf16 and
-                unaligned probs); the registers, static SASS instructions
-                and global stores of the C = 11 instances
+                (C in 1..32 and, in the wide instance, 33, 64 and 128; a
+                ragged last tile, void labels, bf16 and unaligned probs);
+                C = 129 must raise; the wide instance timed cold at C = 64
+                and 128 on the training crop; the registers, static SASS
+                instructions and global stores of the C = 11 instances
  8. train    -- train_dae at full width (FCN-8 fc 4096, DAE stem 1 / depth 3,
                 batch 32 of 360x480 frames cropped to 224 with flips, bf16,
                 eval on full frames) in the gt, natural and mix regimes; the
@@ -48,7 +53,12 @@ Phases:
 10. tserve   -- Predictor.from_npz serves the best_dae.npz phase 8 wrote
 11. probe    -- K4 (fma_chain) at n_fma 2, 26, 50, 100 and K5
                 (pattern_softmax), bf16 and f32, each against its plain
-                version; then the probe tool's sweep (tools/vpu_probe.py):
+                version; edge cases of their vector paths (K4 lengths that
+                are no multiple of a vector and views at odd offsets; K5 at
+                W that is no multiple of 4, C in 4, 11, 16, one row, a view
+                off the vector's boundary); each case's time on the device
+                alone, cold and warm, against its bound, beside an empty
+                kernel's; then the probe tool's sweep (tools/vpu_probe.py):
                 20-launch chains beside the plain versions, the store floor,
                 the marginal multiply-add rate against the FP32 FMA peak
 12. general  -- Predictor(engine="general") at the JAX CLI's full width (DAE
@@ -115,6 +125,7 @@ from iterative_inference_segm_tpu_torch.utils.checkpoint import save_npz
 
 K_STEPS = 5
 EPS = 0.1
+WIDE_CLASSES = (33, 64, 128)  # class counts of the kernels' wide instances; one more must raise
 N_CLASSES = 11
 H, W = 360, 480
 BATCH = 8
@@ -185,8 +196,9 @@ ENERGY_GRAD_REL_TOL = 0.05
 # Operations an element, for the operations side of each bound. K1/K2:
 # counted once from the SASS of the fast paths on sm_90a (a multiply-add
 # counts 2; moves, branches and addressing do not); K1's one-hot (a
-# compare-select) adds 1. K5 (special functions counted once each): the
-# class scale, three shifted multiply-adds and the softmax.
+# compare-select) adds 1. K5, with the same counts for expf and the divide:
+# the class scale, three shifted multiply-adds, the class-3 multiply-add and
+# the softmax.
 CORRUPT_OPS = (
     1  # the counter, pixel * 128 + class
     + 2 * (2 + 6 + 2)  # two murmur3 hashes: multiply-add with the seed, 3 shift-xors, 2 multiplies
@@ -195,7 +207,10 @@ CORRUPT_OPS = (
     + 3 + 2  # Box-Muller's three multiplies; the scaled add
     + 1 + 1 + 12 + 1 + 12  # softmax: max, subtract, expf, sum, the IEEE divide
 )
-PATTERN_FLOPS = 12
+PATTERN_OPS = (
+    1 + 3 * 2 + 2  # the class scale; the left, right and lower neighbours; class 3's value added
+    + 1 + 1 + 12 + 1 + 12  # softmax: max, subtract, expf, sum, the IEEE divide
+)
 
 
 def phase(name: str, msg: str) -> None:
@@ -330,14 +345,28 @@ def edge_cases(dev, gen):
         cases.append((f"w_{tag}", dt, logits(step), probs(step), None, wm, bias, True, False))
         cases.append((f"strided_{tag}", dt, nchw_memory(logits((BATCH, H // 2 + 3, W // 2 + 5, N_CLASSES))),
                       probs(step), nchw_memory(logits(step)), None, None, True, True))
+        # the wide instance (a pixel's classes in shared memory): 33..128 classes
+        for c in WIDE_CLASSES:
+            cases.append((f"C={c}_{tag}", dt, logits((2, 25, 203, c)), probs((2, 24, 200, c)),
+                          logits((2, 24, 200, c)), None, None, True, False))
+        wm = torch.randn((40, 40), generator=gen) * 0.5
+        cases.append((f"w_C=40_{tag}", dt, logits((2, 24, 200, 40)), probs((2, 24, 200, 40)), None, wm,
+                      torch.randn((40,), generator=gen), True, False))
+        cases.append((f"strided_C=33_{tag}", dt, nchw_memory(logits((2, 25, 203, 33))), probs((2, 24, 200, 33)),
+                      nchw_memory(logits((2, 24, 200, 33))), None, None, True, True))
 
     def on_card(t, dt=None):  # .to keeps a dense map's strides
         return None if t is None else t.to(dev, dt or t.dtype)
 
-    return [
+    cases = [
         (name, dt, on_card(u, dt), on_card(y, dt), on_card(v, dt), on_card(wm), on_card(bias), lab, strided)
         for name, dt, u, y, v, wm, bias, lab, strided in cases
     ]
+    # the general engine's pair at 128 classes: bf16 logits beside an f32 iterate
+    u, y = logits((2, 25, 203, 128)), probs((2, 24, 200, 128))
+    cases.append(("C=128_bf16_u", torch.float32, on_card(u, torch.bfloat16), on_card(y), None, None, None, True,
+                  False))
+    return cases
 
 
 def check_kernel_case(name, got, ref, with_labels, dtype):
@@ -398,6 +427,28 @@ def run_kernel_phase(dev, fcn, dae, gdae):
         worst = max(worst, err)
         phase("kernel", f"{name:12s} y={tuple(y.shape)} u={tuple(u.shape)} stride {u.stride()} "
               f"max_abs_err={err:.3e} argmax_agree={agree:.6f} strided={strided}")
+    # the wide instance on one frame, cold against its byte bound; it runs on
+    # no path of the datasets the repo has
+    for c in WIDE_CLASSES[1:]:
+        for tag, dt_y, dt_u in (("f32", torch.float32, torch.float32), ("bf16", torch.bfloat16, torch.bfloat16)):
+            y = torch.softmax(torch.randn((1, H, W, c), generator=gen) * 3.0, -1).to(dev, dt_y)
+            u = (torch.randn((1, H, W, c), generator=gen) * 3.0).to(dev, dt_u)
+            case = tail_bench.Case(f"wide C={c} {tag}", u, y)
+            err, _ = check_kernel_case(case.name, case.kernel(), case.plain(), False, dt_y)
+            worst = max(worst, err)
+            phase("kernel", f"{case.name} y={tuple(y.shape)} max_abs_err={err:.3e}; "
+                  + tail_bench.report(tail_bench.time_case(case, flush)))
+    too_many = WIDE_CLASSES[-1] + 1
+    u = torch.zeros((1, 4, 8, too_many), device=dev)
+    before = refine_tail.launches
+    try:
+        refine_tail(u, u, EPS)
+    except ValueError as e:
+        phase("kernel", f"C={too_many} on the card raises: {e}")
+    else:
+        raise AssertionError(f"refine_tail took {too_many} classes on the card")
+    if refine_tail.launches != before:
+        raise AssertionError("the refused call counted a launch")
     return worst, report
 
 
@@ -500,14 +551,15 @@ def _labels_with_void(shape, gen):
 def corrupt_edge_cases(dev, gen):
     """(name, kernel, plain version, input on the card, kwargs) of K1 and K2
     beyond the main path's shapes: C in {1, 2, 11, 16, 17, 32} (the exact
-    C = 11 instance and the general one); 3 x 45 x 61 = 8235 pixels, whose
-    last 128-pixel tile holds 43 (473 elements at C = 11, so the stores'
-    scalar tail runs); labels from -2 to C + 1 (void below 0 and at or above
+    C = 11 instance and the general one) and {33, 64, 128} (the wide one, a
+    pixel's classes in shared memory); 3 x 45 x 61 = 8235 pixels, whose last
+    128-pixel tile holds 43 (473 elements at C = 11, so the stores' scalar
+    tail runs; the wide instance's last 64-pixel tile holds 43 too); labels from -2 to C + 1 (void below 0 and at or above
     C); probs in bf16 (the wrapper widens them) and 4 bytes past a 16-byte
     boundary (the kernel stages them element by element)."""
     shape = (3, 45, 61)
     cases = []
-    for c in (1, 2, 11, 16, 17, 32):
+    for c in (1, 2, 11, 16, 17, 32, *WIDE_CLASSES):
         lab = torch.randint(-2, c + 2, shape, generator=gen, dtype=torch.int32).to(dev)
         probs = torch.softmax(torch.randn((*shape, c), generator=gen) * 3.0, -1).to(dev)
         cases.append((f"onehot C={c}", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, lab,
@@ -527,51 +579,70 @@ def corrupt_edge_cases(dev, gen):
 def run_corrupt_phase(dev):
     """K1 and K2 bit-equal to their plain versions at the training shapes
     (the train step's crop, and the eval step's full frames), timed warm and
-    cold against their bound, and at the edge cases; then the registers and
-    SASS of the instances the main path launches."""
+    cold against their bound; the wide instance (33..128 classes) timed at
+    C = 64 and 128; the edge cases; one class more than the counter has room
+    for must raise; then the registers and SASS of the instances the main
+    path launches."""
     gen = torch.Generator().manual_seed(3)
     flush = tail_bench.flush_buffer(dev)
     seed = 0x9E3779B9
     report = {}
+
+    def check_and_time(name, fn, ref, src, kw, shape, void=None):
+        """One kernel on one input: bit-equal to its plain version, rows
+        summing to 1, then cold and warm against the bound."""
+        sigma, n_classes = kw["sigma"], kw.get("n_classes", src.shape[-1])
+        got = fn(src, seed, **kw)
+        want = ref(src, seed, **kw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        sum_err = (got.sum(-1) - 1.0).abs().max().item()
+        if not (torch.equal(got, want) and sum_err <= CORRUPT_SUM_TOL):
+            raise AssertionError(f"{name} {shape} C={n_classes} sigma={sigma}: not bit-equal to its plain version "
+                                 f"(max abs err {err:.3e}) or row sums off by {sum_err:.3e}")
+        if void is not None and sigma == 0.0:
+            rows = got[void]
+            if not torch.equal(rows, torch.full_like(rows, 1.0 / n_classes)):
+                raise AssertionError("void rows at sigma 0 are not exactly uniform")
+        del want
+        cold, ahead_cold = tail_bench.device_times(lambda: fn(src, seed, **kw), flush=flush)
+        warm, ahead_warm = tail_bench.device_times(lambda: fn(src, seed, **kw))
+        plain_ms = cuda_time_ms(lambda: ref(src, seed, **kw), 5)
+        out = torch.empty_like(got)
+        fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
+        nbytes = src.numel() * src.element_size() + got.numel() * got.element_size()
+        ops = (CORRUPT_OPS + (name == "corrupt_onehot")) * got.numel()
+        t = {"max_abs_err": err, "ms": statistics.median(cold), "warm_ms": warm[0], "plain_ms": plain_ms,
+             **tail_bench.bound_ms(nbytes, ops)}
+        phase("corrupt", f"{name:14s} {tuple(got.shape)} sigma={sigma}: bit-equal, row_sum_err="
+              f"{sum_err:.1e}; cold {t['ms']:.4f} ms (launches {min(cold):.4f}..{max(cold):.4f}), warm "
+              f"{t['warm_ms']:.4f}, plain {plain_ms:.4f}, store floor {fill_ms:.4f} "
+              f"({got.numel() * 4 / 1e6:.1f} MB); {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_ms'] / t['ms']:.1%} cold "
+              f"({t['bound_ms'] / t['warm_ms']:.1%} warm); host ahead {ahead_cold and ahead_warm}")
+        return t
+
     for shape in ((TRAIN_BATCH, *CROP), (BATCH, H, W)):
         labels = _labels_with_void(shape, gen).to(dev)
         probs = torch.softmax(torch.randn((*shape, N_CLASSES), generator=gen) * 3.0, -1).to(dev)
         void = labels == CAMVID.void_label
         for sigma in (0.0, SIGMA):
-            for name, fn, ref, src, kw in (
-                ("corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
-                 {"n_classes": N_CLASSES, "sigma": sigma}),
-                ("corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs,
-                 {"sigma": sigma}),
-            ):
-                got = fn(src, seed, **kw)
-                want = ref(src, seed, **kw)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                sum_err = (got.sum(-1) - 1.0).abs().max().item()
-                if not (torch.equal(got, want) and sum_err <= CORRUPT_SUM_TOL):
-                    raise AssertionError(f"{name} {shape} sigma={sigma}: not bit-equal to its plain version "
-                                         f"(max abs err {err:.3e}) or row sums off by {sum_err:.3e}")
-                if name == "corrupt_onehot" and sigma == 0.0:
-                    rows = got[void]
-                    if not torch.equal(rows, torch.full_like(rows, 1.0 / N_CLASSES)):
-                        raise AssertionError("void rows at sigma 0 are not exactly uniform")
-                cold, ahead_cold = tail_bench.device_times(lambda: fn(src, seed, **kw), flush=flush)
-                warm, ahead_warm = tail_bench.device_times(lambda: fn(src, seed, **kw))
-                plain_ms = cuda_time_ms(lambda: ref(src, seed, **kw), 5)
-                out = torch.empty_like(got)
-                fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
-                nbytes = src.numel() * src.element_size() + got.numel() * got.element_size()
-                ops = (CORRUPT_OPS + (name == "corrupt_onehot")) * got.numel()
-                t = {"max_abs_err": err, "ms": statistics.median(cold), "warm_ms": warm[0], "plain_ms": plain_ms,
-                     **tail_bench.bound_ms(nbytes, ops)}
-                report[(name, shape, sigma)] = t
-                phase("corrupt", f"{name:14s} {tuple(got.shape)} sigma={sigma}: bit-equal, row_sum_err="
-                      f"{sum_err:.1e}; cold {t['ms']:.4f} ms (launches {min(cold):.4f}..{max(cold):.4f}), warm "
-                      f"{t['warm_ms']:.4f}, plain {plain_ms:.4f}, store floor {fill_ms:.4f} "
-                      f"({got.numel() * 4 / 1e6:.1f} MB); {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations, "
-                      f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_ms'] / t['ms']:.1%} cold "
-                      f"({t['bound_ms'] / t['warm_ms']:.1%} warm); host ahead {ahead_cold and ahead_warm}")
+            report["corrupt_onehot", shape, sigma] = check_and_time(
+                "corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
+                {"n_classes": N_CLASSES, "sigma": sigma}, shape, void)
+            report["corrupt_probs", shape, sigma] = check_and_time(
+                "corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs, {"sigma": sigma}, shape)
+    # the wide instance at the training crop, batch 8; it runs on no path of
+    # the datasets the repo has
+    shape = (BATCH, *CROP)
+    for c in WIDE_CLASSES[1:]:
+        labels = torch.randint(-1, c + 1, shape, generator=gen, dtype=torch.int32).to(dev)
+        probs = torch.softmax(torch.randn((*shape, c), generator=gen) * 3.0, -1).to(dev)
+        check_and_time("corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
+                       {"n_classes": c, "sigma": SIGMA}, shape)
+        check_and_time("corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs,
+                       {"sigma": SIGMA}, shape)
+        del labels, probs
     edge = corrupt_edge_cases(dev, gen)
     for sigma in (0.0, SIGMA):
         for cname, fn, ref, src, kw in edge:
@@ -582,6 +653,18 @@ def run_corrupt_phase(dev):
                 raise AssertionError(f"{cname} sigma={sigma}: max abs err {(got - want).abs().max().item():.3e}, "
                                      "not bit-equal to the plain version")
     phase("corrupt", f"bit-equal at sigma 0 and {SIGMA}: " + ", ".join(c[0] for c in edge))
+    too_many = WIDE_CLASSES[-1] + 1
+    for name, call in (
+        ("corrupt_onehot", lambda: ck.corrupt_onehot(torch.zeros((4, 8), dtype=torch.int32, device=dev), seed,
+                                                     n_classes=too_many, sigma=SIGMA)),
+        ("corrupt_probs", lambda: ck.corrupt_probs(torch.zeros((4, 8, too_many), device=dev), seed, sigma=SIGMA)),
+    ):
+        try:
+            call()
+        except ValueError as e:
+            phase("corrupt", f"C={too_many} on the card raises: {e}")
+        else:
+            raise AssertionError(f"{name} took {too_many} classes on the card")
     # The C = 11 instances: every class loop exact, each class stored to
     # shared memory, the tile written with 16-byte global stores (one
     # scalar store for its tail).
@@ -766,11 +849,42 @@ def run_train_serve_phase(dev, fcn, gt_workdir):
     return refine_tail.launches
 
 
+def probe_edge_cases(dev, gen):
+    """(name, kernel call, plain call, f32 tolerance or None for bit-equal)
+    of K4 and K5 beyond the probe's shapes, in f32 and bf16. K4 (n_fma = 45:
+    the loop unrolled by 32, the one by 8, the remainder): lengths that are
+    no multiple of a 16-byte vector, and views 1, 3 and 5 elements into an
+    aligned buffer (a scalar head, the vectors, a scalar tail). K5: C in
+    {4, 11, 16}; W = 7, 33 and 1 (no multiple of the 4 elements a thread
+    takes: the scalar instance); one row (none below); W = 700; a view of
+    W = 8 one element off the vector's boundary."""
+    cases = []
+    w8 = tuple(torch.linspace(0.9, 1.1, 8).tolist())
+    for dt in probe_tool.DTYPES:
+        tag = str(dt).removeprefix("torch.")
+        for length, offset in ((1, 0), (7, 0), (9, 0), (1003, 0), (1000, 1), (1003, 3), (37, 5)):
+            x = torch.randn(length + offset, generator=gen).to(dev, dt)[offset:]
+            cases.append((f"fma_chain {tag} n={length} at element {offset}", "fma_chain",
+                          lambda x=x: vp.fma_chain(x, w8, 45), lambda x=x: vp.fma_chain_reference(x, w8, 45), None))
+        shapes = [(2, 1, 4, 7), (2, 1, 11, 33), (1, 1, 16, 240), (2, 3, 11, 7), (1, 5, 16, 33), (2, 3, 4, 240),
+                  (1, 2, 11, 700), (3, 4, 11, 1)]
+        views = [torch.randn(s, generator=gen).to(dev, dt) for s in shapes]
+        views.append(torch.randn(1 + 2 * 3 * 11 * 8, generator=gen).to(dev, dt)[1:].view(2, 3, 11, 8))
+        for x in views:
+            k = torch.linspace(0.5, 1.5, x.shape[2], device=dev)
+            off = (x.data_ptr() % 16) // x.element_size()
+            cases.append((f"pattern_softmax {tag} {tuple(x.shape)} at element {off}", "pattern_softmax",
+                          lambda x=x, k=k: vp.pattern_softmax(x, k),
+                          lambda x=x, k=k: vp.pattern_softmax_reference(x, k), PATTERN_F32_TOL))
+    return cases
+
+
 def run_probe_phase(dev):
     """K4/K5 against their plain versions at the probe's shapes (one launch
-    each), then the probe tool's sweep with the launch counts set to 0 just
-    before it. The chain's values grow ~(1 + n) a launch and reach inf, so
-    only the single launches are compared."""
+    each) and at the edge cases of their vector paths; their times on the
+    device alone against their bounds; then the probe tool's sweep with the
+    launch counts set to 0 just before it. The chain's values grow ~(1 + n)
+    a launch and reach inf, so only the single launches are compared."""
     worst = {"fma_chain": 0.0, "pattern_softmax": 0.0}
     for dt in probe_tool.DTYPES:
         x, w = probe_tool.fma_inputs(dt, dev)
@@ -801,14 +915,51 @@ def run_probe_phase(dev):
         tol = PATTERN_F32_TOL if dt == torch.float32 else BF16_TOL
         if not err <= tol or (dt == torch.float32 and not sums <= CORRUPT_SUM_TOL):
             raise AssertionError(f"pattern_softmax {dt}: err {err:.3e} (tol {tol:.1e}), row sums {sums:.2e}")
+    for name, kernel, call, plain, f32_tol in probe_edge_cases(dev, torch.Generator().manual_seed(12)):
+        got, want = call(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if got.dtype == torch.float32:
+            ok = torch.equal(got, want) if f32_tol is None else err <= f32_tol
+        elif kernel == "fma_chain":
+            ok = bool(((got.float() - want.float()).abs() <= 2.0**-7 * want.float().abs()).all())
+        else:
+            ok = err <= BF16_TOL
+        worst[kernel] = max(worst[kernel], err)
+        if not ok or got.shape != want.shape or not got.is_contiguous():
+            raise AssertionError(f"{name}: disagrees with its plain version (max abs err {err:.3e})")
+        phase("probe", f"{name}: max abs err {err:.3e}")
+
+    # each case on the device alone (cold after a read flush of the L2, and
+    # warm), against its bound; an empty kernel through the same route
+    alone = probe_tool.device_sweep(dev)
+    numel = probe_tool.B * probe_tool.R * probe_tool.C * probe_tool.W
+    for key, t in alone.items():
+        if key == "empty":
+            continue
+        size = torch.empty((), dtype=key[1]).element_size()
+        if key[0] == "fma":
+            n, ops = numel * probe_tool.NH, 2 * key[2] * numel * probe_tool.NH
+        else:
+            n, ops = numel, PATTERN_OPS * numel
+        t.update(tail_bench.bound_ms(2 * n * size, ops))
+        floor = alone["empty"]["cold_ms"]
+        plain = f"{t['plain_cold_ms']:.4f}" if "plain_cold_ms" in t else "not timed"
+        phase("probe", f"{' '.join(str(k).removeprefix('torch.') for k in key)}: cold {t['cold_ms']:.4f} ms "
+              f"(launches {t['cold_min_ms']:.4f}..{t['cold_max_ms']:.4f}), warm {t['warm_ms']:.4f}, plain cold "
+              f"{plain}; {2 * n * size / 1e6:.1f} MB, {ops / 1e9:.3f} G operations, bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_ms'] / t['cold_ms']:.1%} cold "
+              f"({t['bound_ms'] / t['warm_ms']:.1%} warm); against the bound plus the empty kernel's "
+              f"{floor:.4f} ms: {(t['bound_ms'] + floor) / t['cold_ms']:.1%}; host ahead {t['host_ahead']}")
+
     vp.fma_chain.launches = 0
     vp.pattern_softmax.launches = 0
-    res = probe_tool.run(dev)
+    res = probe_tool.run(dev, alone)
     launches = {"fma_chain": vp.fma_chain.launches, "pattern_softmax": vp.pattern_softmax.launches}
     if launches != probe_tool.launches_per_sweep():
         raise AssertionError(f"probe sweep launched {launches}; expected {probe_tool.launches_per_sweep()}")
     phase("probe", f"sweep launches {launches}; clocks.sm, max, power, temp: {clocks()}")
-    return worst, launches, res
+    return worst, launches, alone
 
 
 def general_params(dev, dtype=torch.float32):
@@ -1100,7 +1251,8 @@ def main() -> int:
 
     # No single PyTorch call computes any of the five functions, so each
     # library_ms is null. K3's entry is the half engine's step (bf16, the
-    # K-a-chunk launch), timed cold.
+    # K-a-chunk launch), timed cold, as are K1/K2's (the training crop) and
+    # K4/K5's (the probe's shapes).
     step = kreport["step_bf16"]
     kernels = [{
         "name": "refine_tail", "route": "cuda",
@@ -1121,20 +1273,17 @@ def main() -> int:
             "ms": main_path["ms"], "plain_ms": main_path["plain_ms"],
             "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"], "library_ms": None,
         })
-    fma_n = 100  # the f32 maps: each read once and written once
-    pattern_numel = probe_tool.B * probe_tool.R * probe_tool.C * probe_tool.W
-    fma_numel = pattern_numel * probe_tool.NH
-    for kname, line, key, numel, flops in (
-        ("fma_chain", 30, ("fma", torch.float32, fma_n), fma_numel, 2 * fma_n * fma_numel),
-        ("pattern_softmax", 73, ("pattern", torch.float32), pattern_numel, PATTERN_FLOPS * pattern_numel),
-    ):
+    # K4 at f32, n = 100 and K5 at f32, on the device alone, cold
+    for kname, line, key in (("fma_chain", 30, ("fma", torch.float32, 100)),
+                             ("pattern_softmax", 73, ("pattern", torch.float32))):
+        t = probe_res[key]
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "iterative_inference_segm_tpu_torch/csrc/vpu_probe.cu",
             "replaces": f"tools/vpu_probe.py:{line}",
             "launches": probe_launches[kname], "max_abs_err": probe_err[kname],
-            "ms": probe_res[key]["ms"], "plain_ms": probe_res[key]["plain_ms"],
-            **tail_bench.bound_ms(2 * numel * 4, flops), "library_ms": None,
+            "ms": t["cold_ms"], "plain_ms": t["plain_cold_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -49,8 +49,13 @@
 // loops unroll with no test of c < C, so every issued instruction serves a
 // real class, and it is held to 32 registers, so that 16 blocks (all 64
 // warps) fit on an SM, a pixel's 11 independent noise chains covering each
-// other's latency. Every other C takes a general instance, right but not
-// tuned. Measured on an H100 at the training crop (PERF.md), against the
+// other's latency. Every other C up to 32 takes a general instance, right
+// but not tuned. From 33 to 128 classes (the TPU kernels' own cap: one lane
+// a class) a pixel's logits would spill from registers, so a wide instance
+// keeps them in the tile in shared memory (64 pixels a block, the tile's
+// size following C) and loops over them against the run-time C, each
+// operation as in the register instances: the same bits. Measured on an
+// H100 at the training crop (PERF.md), against the
 // first form's time: the staging alone, with the general instance at
 // C = 11, 0.68 (K1) and 0.76 (K2); the exact instance alone 0.96 and 0.98;
 // both 0.39 and 0.40. One element a thread over the flat n * C index, which
@@ -69,7 +74,9 @@ namespace {
 constexpr uint32_t kLanes = 128;  // the TPU kernels' padded class width
 constexpr float kTwoPi = 6.28318548202514648f;  // float32(2 pi), as JAX rounds it
 constexpr int kTile = 128;        // pixels a block, one a thread
-constexpr int kMaxClasses = 32;
+constexpr int kRegClasses = 32;   // the most classes a pixel holds in registers
+constexpr int kMaxClasses = 128;  // the most the wide instance takes: kLanes
+constexpr int kWideTile = 64;     // pixels a block of the wide instance: 32 KB of tile at C = 128
 constexpr int kExactClasses = 11;  // CamVid
 constexpr int kExactBlocks = 16;   // resident blocks an SM the exact instance is held to
 
@@ -175,19 +182,74 @@ __global__ void __launch_bounds__(kTile, kExact ? kExactBlocks : 1) corrupt_kern
   store_out(out + e0, tile, ne);
 }
 
+// The wide instance, 32 < C <= 128: a pixel's classes stay in its row of the
+// tile (dynamic shared memory, np * C floats). Rows lie C words apart, so
+// threads that walk their classes in step hit one bank whenever C is a
+// multiple of 32: the passes whose order is free start at class px mod C,
+// each thread on another bank; only the denominator is summed in class
+// order, as in the register instances.
+template <bool kOneHot>
+__global__ void __launch_bounds__(kWideTile) corrupt_wide_kernel(
+    const int* __restrict__ labels, const float* __restrict__ probs, long long n, int C,
+    uint32_t seed, float sigma, float* __restrict__ out) {
+  extern __shared__ __align__(16) float wide_tile[];
+  const long long p0 = (long long)blockIdx.x * kWideTile;  // the tile's first pixel
+  const int np = (int)min((long long)kWideTile, n - p0);
+  const int ne = np * C;
+  const long long e0 = p0 * C;  // its first element: 16-byte aligned (kWideTile * 4 = 256 bytes)
+  if (!kOneHot) {
+    stage_in(wide_tile, probs + e0, ne);
+    __syncthreads();
+  }
+
+  const int px = threadIdx.x;
+  if (px < np) {
+    const long long p = p0 + px;
+    const uint32_t base = (uint32_t)p * kLanes;
+    const uint32_t seed2 = seed ^ 0xDEADBEEFu;
+    const int lab = kOneHot ? __ldg(labels + p) : 0;
+    float* row = wide_tile + px * C;
+    const int first = px % C;
+    auto turned = [&](int i) { return first + i < C ? first + i : first + i - C; };
+    float m = -INFINITY;
+    for (int i = 0; i < C; ++i) {
+      const int c = turned(i);
+      const float clean = kOneHot ? (lab == c ? 1.0f : 0.0f) : row[c];
+      row[c] = __fadd_rn(clean, __fmul_rn(sigma, gauss(base + (uint32_t)c, seed, seed2)));
+      m = fmaxf(m, row[c]);
+    }
+    for (int i = 0; i < C; ++i) {
+      const int c = turned(i);
+      row[c] = expf(row[c] - m);
+    }
+    float s = 0.0f;
+    for (int c = 0; c < C; ++c) s += row[c];
+    for (int i = 0; i < C; ++i) {
+      const int c = turned(i);
+      row[c] = row[c] / s;
+    }
+  }
+  __syncthreads();  // the tile is staged
+  store_out(out + e0, wide_tile, ne);
+}
+
 template <bool kOneHot>
 int launch(const int* labels, const float* probs, long long n, int C, unsigned seed,
            float sigma, float* out, void* stream) {
   if (n < 1 || C < 1 || C > kMaxClasses) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(out) & 15) return (int)cudaErrorMisalignedAddress;
-  const long long blocks = (n + kTile - 1) / kTile;
+  const int tile = C > kRegClasses ? kWideTile : kTile;
+  const long long blocks = (n + tile - 1) / tile;
   if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C == kExactClasses)
+  if (C > kRegClasses)
+    corrupt_wide_kernel<kOneHot><<<(unsigned)blocks, kWideTile, kWideTile * C * sizeof(float), st>>>(
+        labels, probs, n, C, seed, sigma, out);
+  else if (C == kExactClasses)
     corrupt_kernel<kOneHot, kExactClasses, true><<<(unsigned)blocks, kTile, 0, st>>>(
         labels, probs, n, C, seed, sigma, out);
   else
-    corrupt_kernel<kOneHot, kMaxClasses, false><<<(unsigned)blocks, kTile, 0, st>>>(
+    corrupt_kernel<kOneHot, kRegClasses, false><<<(unsigned)blocks, kTile, 0, st>>>(
         labels, probs, n, C, seed, sigma, out);
   return (int)cudaGetLastError();
 }

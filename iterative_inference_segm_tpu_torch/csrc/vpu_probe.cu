@@ -25,23 +25,76 @@
 //   so nvcc contracts nothing, and uses the accurate expf (no
 //   --use_fast_math) and a division, summing the exponentials class by class.
 //
-// What bounds them: K4 moves 2 x 4 (f32) or 2 x 2 (bf16) bytes per element
-// and does n_fma multiply-adds; the probe tool times it over a range of n to
-// find where the chain's time starts to rise above the memory-bound time
-// (the crossover; tools/vpu_probe.py in the port). K5 reads each element about four times (neighbours come from L1/L2)
-// and writes it once, with ~25 instructions per element, an expf and a
-// division: memory-bound on this card.
+// What bounds them. K4 moves 2 x 4 (f32) or 2 x 2 (bf16) bytes an element
+// and does n_fma multiply-adds: bound by bytes up to n ~ 20, by the FP32
+// rate above. K5 reads and writes each element once for ~35 instructions (an
+// expf and a division among them): bound by bytes, and at the probe's
+// (32, 36, 11, 240) so short (7.3 us of traffic in f32, 3.6 in bf16) that an
+// empty kernel's own few microseconds are a large share of its time.
 //
-// Design: one thread per element (K4) or per (n, r, w) pixel column (K5,
-// the C classes in registers, C <= 16). Neighbouring threads own neighbouring
-// w, so every load and store of a warp is one contiguous span. The simple,
-// correct form: no vector loads or shared-memory staging.
+// What held the first forms back (one element a thread in K4; one (n, r, w)
+// pixel column a thread in K5, with 4 C scalar loads): the number of
+// accesses and threads, not the bytes. bf16 took the same time as f32 in
+// both. K4's chain also carried a loop test every 8 multiply-adds, on one
+// chain a thread.
+//
+// What the design does about it.
+// - K4: a thread takes 16 bytes (4 f32 or 8 bf16) with one vector load and
+//   one vector store, and holds those 4 or 8 independent chains, the n_fma
+//   loop unrolled by kFmaUnroll steps (then by 8, then the remainder). The
+//   wrapper allocates out at x's offset within a 16-byte chunk, so that one
+//   split serves both: a scalar head up to the first 16-byte boundary, the
+//   vectors, a scalar tail; the ends are done by the first threads of the
+//   grid.
+// - K5: a thread takes 4 consecutive w of one (n, r) and all C classes: per
+//   class one vector load of its row (16 bytes in f32) and one of the row
+//   below, the two neighbours outside the vector as scalars (the two inside
+//   are already in registers), and one vector store; 4 load instructions a
+//   class for 4 pixels where the first form issued 16. The 4 C elements a
+//   thread holds are independent until the softmax, so the loads of later
+//   classes are in flight while the first are computed, with no barrier
+//   and no shared memory. C = 11 has an exact instance whose class loops
+//   unroll with no test. In bf16 a thread takes 4 w too (8-byte accesses):
+//   8 w a thread (16 bytes) halves the threads and needs 122 registers, and
+//   measured 12% slower. Maps whose rows do not start on the vector's
+//   boundary (W % 4 != 0, or a view at an odd offset) take the scalar
+//   instance, which is the first form.
+//   Tiles staged through shared memory with 16-byte cp.async copies and
+//   stored from it, on the template of refine_tail.cu, measured 30% slower
+//   than this (PERF.md): at this size every block is resident at once, so
+//   all of them copy, then compute, then store in step, and nothing
+//   overlaps; a grid looping over tiles with the next one in flight was no
+//   faster.
+//
+// The tuning constants can be set from the compiler's command line
+// (tools/probe_sweep.py builds and times the candidates); the defaults are
+// what was fastest cold on an H100 (PERF.md).
 //
 // Plain C interface (loaded with ctypes by ops/vpu_probe.py); each launch
-// returns cudaGetLastError() so the wrapper can raise on a refused launch.
+// returns the CUDA error of its set-up or launch so the wrapper can raise.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#ifndef K4_THREADS
+#define K4_THREADS 256
+#endif
+#ifndef K4_BLOCKS  // resident blocks an SM the kernel is held to
+#define K4_BLOCKS 8
+#endif
+#ifndef K4_UNROLL  // a multiple of 8
+#define K4_UNROLL 32
+#endif
+#ifndef K5_VECTOR  // 0: every shape takes the scalar instance (the first form), to time it side by side
+#define K5_VECTOR 1
+#endif
+#ifndef K5_THREADS
+#define K5_THREADS 64
+#endif
+#ifndef K5_BF16_V  // bf16 elements a thread: 4 (8 bytes) or 8 (16 bytes)
+#define K5_BF16_V 4
+#endif
 
 namespace {
 
@@ -49,38 +102,130 @@ struct Weights {
   float v[8];
 };
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
+constexpr int kFmaThreads = K4_THREADS;
+constexpr int kFmaBlocks = K4_BLOCKS;
+constexpr int kFmaUnroll = K4_UNROLL;
+static_assert(kFmaUnroll % 8 == 0, "step k + j takes weight j & 7 only from a multiple of 8");
 
-template <typename T>
-__global__ void __launch_bounds__(256) fma_chain_kernel(
-    const T* __restrict__ x, T* __restrict__ out, long long n, int n_fma, Weights w) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float xv = load(x + i);
-  float acc = xv;
+// V elements of T (16 bytes, or 8) as f32 values.
+template <typename T, int V>
+struct Pack;
+template <>
+struct Pack<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Pack<__nv_bfloat16, 4> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[4]) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[4]) {
+    uint2 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint2*>(p) = q;
+  }
+};
+template <>
+struct Pack<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x, v[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
+    uint4 q;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = q;
+  }
+};
+
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+
+// V independent chains: acc[v] = fmaf(x[v], w[i & 7], acc[v]) for i < n_fma.
+template <int V>
+__device__ __forceinline__ void chain(float (&acc)[V], const float (&x)[V], int n_fma, const Weights& w) {
   int k = 0;
+  for (; k + kFmaUnroll <= n_fma; k += kFmaUnroll) {
+#pragma unroll
+    for (int j = 0; j < kFmaUnroll; ++j) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(x[v], w.v[j & 7], acc[v]);
+    }
+  }
+  // k stays a multiple of 8, so step k + j takes weight j
   for (; k + 8 <= n_fma; k += 8) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc = fmaf(xv, w.v[j], acc);
-  }
-  // k is a multiple of 8 here, so step k + j takes weight j
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
-    if (k + j < n_fma) acc = fmaf(xv, w.v[j], acc);
-  store(out + i, acc);
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(x[v], w.v[j], acc[v]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if (k + j < n_fma) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = fmaf(x[v], w.v[j], acc[v]);
+    }
+  }
+}
+
+// x and out share their offset within a 16-byte chunk. Elements [0, head)
+// lie before the first boundary, then n_vec vectors, then the tail up to n.
+template <typename T>
+__global__ void __launch_bounds__(kFmaThreads, kFmaBlocks) fma_chain_kernel(
+    const T* __restrict__ x, T* __restrict__ out, long long n, int head, long long n_vec, int n_fma,
+    const Weights w) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_vec) {
+    float xv[V], acc[V];
+    Pack<T, V>::load(x + head + i * V, xv);
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = xv[v];
+    chain<V>(acc, xv, n_fma, w);
+    Pack<T, V>::store(out + head + i * V, acc);
+  }
+  const long long tail = head + n_vec * V;  // the first element after the vectors
+  if (i < head + (n - tail)) {              // the two ends: fewer than 2 V elements
+    const long long e = i < head ? i : tail + (i - head);
+    float xs[1] = {load(x + e)};
+    float as[1] = {xs[0]};
+    chain<1>(as, xs, n_fma, w);
+    store(out + e, as[0]);
+  }
 }
 
 constexpr int kCMax = 16;
+constexpr int kPatThreads = K5_THREADS;
+
+// The scalar instance (the first form): one (n, r, w) pixel column a thread,
+// for maps whose rows do not start on the vector's boundary.
 
 template <typename T>
-__global__ void __launch_bounds__(256) pattern_softmax_kernel(
+__global__ void __launch_bounds__(256) pattern_softmax_scalar_kernel(
     const T* __restrict__ x, const float* __restrict__ kc, T* __restrict__ out,
     int N, int R, int C, int W) {
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -127,46 +272,154 @@ __global__ void __launch_bounds__(256) pattern_softmax_kernel(
     if (c < C) store(out + row + (long long)c * W, __fdiv_rn(s[c], sum));
 }
 
-unsigned blocks_for(long long n, int threads) {
-  return (unsigned)((n + threads - 1) / threads);
+// The vector instance: a thread takes V consecutive w of one (n, r), all
+// classes: per class one vector load of the row, one of the row below, and
+// the neighbours either side of the vector as scalars; a vector store per
+// class. Every row starts on the vector's boundary (W % V == 0). kExact:
+// C == CMAX, so the class loops unroll with no test of c < C.
+template <typename T, int V, int CMAX, bool kExact>
+__global__ void __launch_bounds__(kPatThreads) pattern_softmax_vec_kernel(
+    const T* __restrict__ x, const float* __restrict__ kc, T* __restrict__ out,
+    int N, int R, int C_, int W) {
+  const int C = kExact ? CMAX : C_;
+  const int wv = W / V;  // vectors a row
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (long long)N * R * wv) return;
+  const int w0 = (int)(t % wv) * V;
+  const long long nr = t / wv;  // n * R + r
+  const int r = (int)(nr % R);
+  const long long row = nr * C * W + w0;  // element (n, r, 0, w0)
+  const long long cw = (long long)C * W;
+  const bool has_left = w0 > 0, has_right = w0 + V < W, has_up = r < R - 1;
+
+  float s[CMAX][V];
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) {
+    if (c < C) {
+      const float k = __ldg(kc + c);
+      const T* p = x + row + (long long)c * W;
+      float a[V], up[V];
+      Pack<T, V>::load(p, a);
+#pragma unroll
+      for (int i = 0; i < V; ++i) a[i] = __fmul_rn(a[i], k);
+      if (has_up) {
+        Pack<T, V>::load(p + cw, up);
+#pragma unroll
+        for (int i = 0; i < V; ++i) up[i] = __fmul_rn(up[i], k);
+      } else {
+#pragma unroll
+        for (int i = 0; i < V; ++i) up[i] = 0.0f;
+      }
+      const float left = has_left ? __fmul_rn(load(p - 1), k) : 0.0f;
+      const float right = has_right ? __fmul_rn(load(p + V), k) : 0.0f;
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float v = __fadd_rn(a[i], __fmul_rn(0.5f, i > 0 ? a[i - 1] : left));
+        v = __fadd_rn(v, __fmul_rn(0.25f, i < V - 1 ? a[i + 1] : right));
+        s[c][i] = __fadd_rn(v, __fmul_rn(0.125f, up[i]));
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float s3 = s[3][i];  // the value before the update, for every class
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) s[c][i] = __fadd_rn(s[c][i], __fmul_rn(s3, 0.01f));
+    float m = s[0][i];
+#pragma unroll
+    for (int c = 1; c < CMAX; ++c)
+      if (c < C) m = fmaxf(m, s[c][i]);
+    float sum = 0.0f;
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c) {
+      if (c < C) {
+        s[c][i] = expf(__fadd_rn(s[c][i], -m));
+        sum = __fadd_rn(sum, s[c][i]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) s[c][i] = __fdiv_rn(s[c][i], sum);
+  }
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c)
+    if (c < C) Pack<T, V>::store(out + row + (long long)c * W, s[c]);
+}
+
+__global__ void empty_kernel() {}
+
+unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+
+template <typename T>
+cudaError_t run_pattern(const void* x_, const float* kc, void* out_, int N, int R, int C, int W,
+                        cudaStream_t stream) {
+  const T* x = static_cast<const T*>(x_);
+  T* out = static_cast<T*>(out_);
+  const long long pixels = (long long)N * R * W;
+  if ((pixels + kPatThreads - 1) / kPatThreads > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+#if K5_VECTOR
+  constexpr int V = sizeof(T) == 4 ? 4 : K5_BF16_V;
+  constexpr int kAlign = V * (int)sizeof(T) - 1;
+  if (W % V == 0 && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & kAlign) == 0) {
+    // the probe's 11 classes unroll exactly; other counts run loops tested
+    // against a run-time C
+    const unsigned blocks = blocks_for(pixels / V, kPatThreads);
+    if (C == 11)
+      pattern_softmax_vec_kernel<T, V, 11, true><<<blocks, kPatThreads, 0, stream>>>(x, kc, out, N, R, C, W);
+    else
+      pattern_softmax_vec_kernel<T, V, kCMax, false><<<blocks, kPatThreads, 0, stream>>>(x, kc, out, N, R, C, W);
+    return cudaGetLastError();
+  }
+#endif
+  pattern_softmax_scalar_kernel<T><<<blocks_for(pixels, 256), 256, 0, stream>>>(x, kc, out, N, R, C, W);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_fma(const void* x, void* out, long long n, int n_fma, const Weights& w,
+                    cudaStream_t stream) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
+  if ((a ^ reinterpret_cast<uintptr_t>(out)) & 15) return cudaErrorMisalignedAddress;
+  long long head = (long long)((16 - (a & 15)) & 15) / (long long)sizeof(T);
+  if (head > n) head = n;
+  const long long n_vec = (n - head) / V;
+  const long long blocks = n_vec > 0 ? (n_vec + kFmaThreads - 1) / kFmaThreads : 1;  // the ends need one
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  fma_chain_kernel<T><<<(unsigned)blocks, kFmaThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), n, (int)head, n_vec, n_fma, w);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// K4. dtype: 0 = float32, 1 = bfloat16. x, out: n contiguous elements.
+// K4. dtype: 0 = float32, 1 = bfloat16. x, out: n contiguous elements, at
+// the same offset within a 16-byte chunk.
 extern "C" int fma_chain_launch(int dtype, const void* x, void* out, long long n, int n_fma,
                                 float w0, float w1, float w2, float w3, float w4, float w5,
                                 float w6, float w7, void* stream) {
-  const int threads = 256;
-  if (n < 1 || n_fma < 0 || (dtype != 0 && dtype != 1) ||
-      (n + threads - 1) / threads > 0x7FFFFFFFLL)
-    return (int)cudaErrorInvalidValue;
+  if (n < 1 || n_fma < 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const Weights w{{w0, w1, w2, w3, w4, w5, w6, w7}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    fma_chain_kernel<float><<<blocks_for(n, threads), threads, 0, st>>>(
-        static_cast<const float*>(x), static_cast<float*>(out), n, n_fma, w);
-  else
-    fma_chain_kernel<__nv_bfloat16><<<blocks_for(n, threads), threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<__nv_bfloat16*>(out), n, n_fma, w);
-  return (int)cudaGetLastError();
+  if (dtype == 0) return (int)run_fma<float>(x, out, n, n_fma, w, st);
+  return (int)run_fma<__nv_bfloat16>(x, out, n, n_fma, w, st);
 }
 
 // K5. x, out: contiguous (N, R, C, W) of the dtype; kc: C float32 on the card.
 extern "C" int pattern_softmax_launch(int dtype, const void* x, const void* kc, void* out,
                                       int N, int R, int C, int W, void* stream) {
-  const int threads = 256;
-  const long long pixels = (long long)N * R * W;
-  if (N < 1 || R < 1 || W < 1 || C < 4 || C > kCMax || (dtype != 0 && dtype != 1) ||
-      (pixels + threads - 1) / threads > 0x7FFFFFFFLL)
+  if (N < 1 || R < 1 || W < 1 || C < 4 || C > kCMax || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* k = static_cast<const float*>(kc);
-  if (dtype == 0)
-    pattern_softmax_kernel<float><<<blocks_for(pixels, threads), threads, 0, st>>>(
-        static_cast<const float*>(x), k, static_cast<float*>(out), N, R, C, W);
-  else
-    pattern_softmax_kernel<__nv_bfloat16><<<blocks_for(pixels, threads), threads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), k, static_cast<__nv_bfloat16*>(out), N, R, C, W);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return (int)run_pattern<float>(x, k, out, N, R, C, W, st);
+  return (int)run_pattern<__nv_bfloat16>(x, k, out, N, R, C, W, st);
+}
+
+// An empty kernel through the same route: what a launch and its two events
+// cost on the device, the floor under a kernel of a few microseconds.
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

@@ -16,9 +16,12 @@ first use by ``ops/_build.py``) or raises; on a CPU tensor it runs the plain
 PyTorch version (``*_kernel_reference``), which computes the same hash with
 uint32 arithmetic carried in int64. No path falls back from the kernel to
 the plain version. ``corrupt_onehot.launches`` and
-``corrupt_probs.launches`` count kernel launches. Neither has a backward:
-the output is a constant of the training step (the JAX wrappers end in
-``stop_gradient``).
+``corrupt_probs.launches`` count kernel launches. Both take up to
+``MAX_CLASSES`` = 128 classes, as the Pallas kernels do (one TPU lane a
+class, which the counter layout keeps: at more, neighbouring pixels would
+share counters), and raise above, on any device, as the JAX wrappers do.
+Neither has a backward: the output is a constant of the training step (the
+JAX wrappers end in ``stop_gradient``).
 """
 
 from __future__ import annotations
@@ -31,8 +34,7 @@ import torch
 
 from iterative_inference_segm_tpu_torch.ops import _build
 
-MAX_CLASSES = 32
-_LANES = 128  # the TPU kernels' padded class width, kept in the counter
+MAX_CLASSES = _LANES = 128  # the TPU kernels' padded class width, kept in the counter
 _MASK32 = 0xFFFFFFFF
 _TWO_PI = float(np.float32(2.0 * math.pi))  # exactly representable in f32
 
@@ -112,7 +114,7 @@ def corrupt_probs_kernel_reference(probs: torch.Tensor, seed: int, *, sigma: flo
 
 def _check_classes(name: str, c: int) -> None:
     if not 1 <= c <= MAX_CLASSES:
-        raise ValueError(f"{name}: {c} classes; the kernel takes 1..{MAX_CLASSES}")
+        raise ValueError(f"{name}: {c} classes; the counter (pixel * {_LANES} + class) takes 1..{MAX_CLASSES}")
 
 
 def _launch(entry: str, src: torch.Tensor, n: int, c: int, seed: int, sigma: float):

@@ -21,6 +21,11 @@ element-by-element staging instead of its 16-byte copies. Set
 maps to it (``layout``; ``tools/tail_bench.py`` records what the engines
 hand the kernel this way); it is None otherwise.
 
+The plain version takes any class count. The kernel takes up to
+``MAX_CLASSES`` = 128, the cap of the JAX package's Pallas kernels (up to 32
+a pixel's classes live in registers, above in shared memory); a CUDA tensor
+of more classes raises, naming the limit.
+
 ``u`` has ``y``'s dtype, or is bfloat16 beside a float32 ``y``: the general
 engine hands the kernel the DAE's bf16 logits, which it widens in registers
 exactly as ``.float()`` would, instead of a cast pass over the map.
@@ -35,7 +40,7 @@ import torch
 from iterative_inference_segm_tpu_torch.ops import _build
 from iterative_inference_segm_tpu_torch.ops.conv import crop_to
 
-MAX_CLASSES = 32
+MAX_CLASSES = 128  # on the card; the plain version has no cap
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _P = ctypes.c_void_p
@@ -86,9 +91,7 @@ def _check(u, y, v, w, b) -> None:
     bsz, h, wd, c = (int(s) for s in y.shape)
     if y.dtype not in _DTYPE_CODE:
         raise TypeError(f"refine_tail: dtype {y.dtype} not supported (float32, bfloat16)")
-    if not 1 <= c <= MAX_CLASSES:
-        raise ValueError(f"refine_tail: {c} classes; the kernel takes 1..{MAX_CLASSES}")
-    if min(bsz, h, wd) < 1:
+    if min(bsz, h, wd, c) < 1:
         raise ValueError(f"refine_tail: empty map {tuple(y.shape)}")
     if u.dim() != 4 or int(u.shape[0]) != bsz or int(u.shape[3]) != c:
         raise ValueError(f"refine_tail: u {tuple(u.shape)} does not match y {tuple(y.shape)}")
@@ -116,6 +119,14 @@ def _check(u, y, v, w, b) -> None:
             raise ValueError(f"refine_tail: {name} on {t.device}, y on {y.device}")
     if h * wd * bsz >= 2**31:
         raise ValueError("refine_tail: more than 2^31 pixels")
+
+
+def check_kernel_classes(name: str, c: int) -> None:
+    """The class count a CUDA tensor may have: the kernels keep a pixel's
+    classes on chip and take 1..MAX_CLASSES. No wrapper hands a CUDA tensor
+    to the plain version instead."""
+    if not 1 <= c <= MAX_CLASSES:
+        raise ValueError(f"{name}: {c} classes on a CUDA tensor; the kernel takes 1..{MAX_CLASSES}")
 
 
 def row_packed(t: torch.Tensor) -> bool:
@@ -189,6 +200,7 @@ def refine_tail(
         return refine_tail_reference(u, y, eps, v=v, w=w, b=b, with_labels=with_labels)
     if y.device.type != "cuda":
         raise ValueError(f"refine_tail: no kernel for device {y.device}")
+    check_kernel_classes("refine_tail", int(y.shape[3]))
     return _launch(u, y, eps, v, w, b, with_labels)
 
 

@@ -14,7 +14,11 @@ On a CUDA tensor each wrapper launches the hand-written kernel (built at
 first use by ``ops/_build.py``) or raises; on a CPU tensor it runs the plain
 PyTorch version (``*_reference``). No path falls back from the kernel to
 the plain version. ``fma_chain.launches`` and ``pattern_softmax.launches``
-count kernel launches.
+count kernel launches. K4 reads and writes 16 bytes a thread (a scalar head
+and tail where the tensor does not start or end on a 16-byte boundary). K5
+takes 4 pixels a thread with vector loads and stores where every row starts
+on the vector's boundary (W a multiple of 4, an aligned tensor), and one
+pixel a thread otherwise.
 """
 
 from __future__ import annotations
@@ -22,11 +26,15 @@ from __future__ import annotations
 import ctypes
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from iterative_inference_segm_tpu_torch.ops import _build
 
 MAX_CLASSES = 16
+# Tuning constants ("NAME=value") the kernels are built with; empty for the
+# source's own. ``tools/probe_sweep.py`` sets it to time candidates.
+DEFINES: tuple[str, ...] = ()
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FMA_ARGTYPES = [_I, _P, _P, _L, _I] + [_F] * 8 + [_P]
@@ -34,9 +42,11 @@ _PATTERN_ARGTYPES = [_I, _P, _P, _P] + [_I] * 4 + [_P]
 
 
 def _weights(w) -> list[float]:
-    """The eight weights as host floats (the TPU kernel read its (8, 1) ``w``
-    from SMEM; the CUDA kernel takes them by value)."""
-    vals = [float(v) for v in torch.as_tensor(w, dtype=torch.float32).reshape(-1).tolist()]
+    """The eight weights as host floats, rounded to float32 (the TPU kernel
+    read its (8, 1) ``w`` from SMEM; the CUDA kernel takes them by value)."""
+    if isinstance(w, torch.Tensor):
+        w = w.detach().cpu().tolist()
+    vals = np.asarray(w, dtype=np.float32).reshape(-1).tolist()
     if len(vals) != 8:
         raise ValueError(f"fma_chain: w must hold 8 weights; got {len(vals)}")
     return vals
@@ -87,7 +97,7 @@ def _device_kind(name: str, x: torch.Tensor) -> str:
 
 
 def _fn(entry: str, argtypes):
-    fn = getattr(_build.load("vpu_probe"), entry)
+    fn = getattr(_build.load("vpu_probe", DEFINES), entry)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -104,7 +114,11 @@ def fma_chain(x: torch.Tensor, w: Sequence[float] | torch.Tensor, n_fma: int) ->
         return fma_chain_reference(x, w, n_fma)
     wv = _weights(w)
     xc = x.contiguous()
-    out = torch.empty_like(xc)
+    # out at x's offset within a 16-byte chunk (a view into a larger
+    # tensor may start anywhere): one split into head, vectors and tail
+    # then serves the kernel's 16-byte loads and its 16-byte stores
+    lead = (xc.data_ptr() % 16) // xc.element_size()
+    out = torch.empty(xc.numel() + lead, dtype=xc.dtype, device=xc.device)[lead:].view(xc.shape)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _fn("fma_chain_launch", _FMA_ARGTYPES)(
@@ -145,6 +159,20 @@ def pattern_softmax(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"pattern_softmax: kernel launch failed with CUDA error {rc}")
     pattern_softmax.launches += 1
     return out
+
+
+def empty_launch(device) -> None:
+    """Launches an empty kernel on ``device``'s current stream through the
+    same ctypes route as K4 and K5: timed beside them, it is the floor a
+    launch and its events set under a kernel of a few microseconds. It
+    computes nothing and counts nothing."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch: no kernel for device {device}")
+    with torch.cuda.device(device):
+        rc = _fn("empty_launch", [_P])(torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty_launch: kernel launch failed with CUDA error {rc}")
 
 
 fma_chain.launches = 0

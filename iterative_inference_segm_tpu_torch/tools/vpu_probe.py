@@ -18,6 +18,15 @@ measured: K4 is also timed at n in CROSSOVER_N, and the first n whose time
 exceeds the n=2 time by more than CROSSOVER_RISE is reported with the
 measured point below it.
 
+A chain is issued from the host, one launch after another, and the host
+cannot issue a launch every few microseconds: a chain time near or under
+0.01 ms per call is the host's launch rate, not the kernel. So
+``device_sweep`` also times every case on the device alone
+(``tools/tail_bench.device_times``: the calls queued behind a device-side
+sleep; cold, after the L2 was flushed by reading 128 MB, the median of 30
+launches, and warm, back to back), with an empty kernel launched through the
+same route as the floor, and ``run`` prints those beside the chain times.
+
 Run on a card (there is no CPU mode, and no kernel failure is caught):
 
     python -m iterative_inference_segm_tpu_torch.tools.vpu_probe
@@ -25,17 +34,20 @@ Run on a card (there is no CPU mode, and no kernel failure is caught):
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 
 import torch
 
 from iterative_inference_segm_tpu_torch.ops.vpu_probe import (
+    empty_launch,
     fma_chain,
     fma_chain_reference,
     pattern_softmax,
     pattern_softmax_reference,
 )
+from iterative_inference_segm_tpu_torch.tools import tail_bench
 
 R, C, W = 36, 11, 240
 NH = 5
@@ -47,6 +59,7 @@ CROSSOVER_N = (4, 8, 12, 16, 20)  # timed besides N_FMA, to bracket the crossove
 CROSSOVER_RISE = 0.10
 DTYPES = (torch.bfloat16, torch.float32)
 FP32_LANES_PER_SM = 128
+HOST_BOUND_RATIO = 1.25  # a chain this much slower than the warm device time waits on the host
 
 
 def fma_inputs(dtype, device, seed: int = 0):
@@ -111,9 +124,53 @@ def fp32_fma_peak(device) -> tuple[float, str]:
     return sms * FP32_LANES_PER_SM * mhz * 1e6, f"{sms} SMs x {FP32_LANES_PER_SM} x {mhz:.0f} MHz"
 
 
-def _line(label: str, ms: float, plain_ms: float) -> None:
+def _line(label: str, ms: float, plain_ms: float, dev: dict | None = None) -> None:
+    alone = "" if dev is None else (
+        f" | on the device alone: cold {dev['cold_ms']:.4f} ms ({dev['cold_min_ms']:.4f}..{dev['cold_max_ms']:.4f}), "
+        f"warm {dev['warm_ms']:.4f}, host ahead {dev['host_ahead']}; plain cold {dev['plain_cold_ms']:.4f}"
+        + ("; the chain is bound by the host" if ms > HOST_BOUND_RATIO * dev["warm_ms"] else ""))
     print(f"{label:<30s} {ms:8.4f} ms/call {ms / B:8.5f} ms/img-eq | plain {plain_ms:8.4f} ms/call "
-          f"{plain_ms / B:8.5f} ms/img-eq", flush=True)
+          f"{plain_ms / B:8.5f} ms/img-eq{alone}", flush=True)
+
+
+def device_ms(fn, flush, plain=None) -> dict:
+    """``fn``'s time on the device alone: cold (the median, least and most
+    of 30 launches, each after a read flush of the L2), warm (back to back),
+    the plain version's cold median of 5, and whether the host had queued
+    both of the kernel's loops before their device-side sleep ended (the
+    plain K4 copies its weights to the card, which waits for the sleep; its
+    calls take milliseconds, which the host's wait does not change)."""
+    cold, ahead_cold = tail_bench.device_times(fn, flush=flush)
+    warm, ahead_warm = tail_bench.device_times(fn)
+    out = {"cold_ms": statistics.median(cold), "cold_min_ms": min(cold), "cold_max_ms": max(cold),
+           "warm_ms": warm[0], "host_ahead": ahead_cold and ahead_warm}
+    if plain is not None:
+        out["plain_cold_ms"] = statistics.median(tail_bench.device_times(plain, iters=5, flush=flush)[0])
+    return out
+
+
+def device_sweep(device) -> dict:
+    """Every case of ``run`` (K4 over N_FMA and, without the plain version,
+    CROSSOVER_N; K5; both dtypes) and an empty kernel, each timed on the
+    device alone by ``device_ms``: {('fma', dtype, n) | ('pattern', dtype) |
+    'empty': its dict}. Its launches are not part of ``launches_per_sweep``."""
+    flush = tail_bench.flush_buffer(device)
+    res = {"empty": device_ms(lambda: empty_launch(device), flush)}
+    e = res["empty"]
+    print(f"empty kernel, the same route: cold {e['cold_ms']:.4f} ms ({e['cold_min_ms']:.4f}..{e['cold_max_ms']:.4f}), "
+          f"warm {e['warm_ms']:.4f}; host ahead {e['host_ahead']}", flush=True)
+    for dt in DTYPES:
+        x, w = fma_inputs(dt, device)
+        wv = tuple(w.tolist())
+        for n in N_FMA:
+            res[("fma", dt, n)] = device_ms(lambda n=n: fma_chain(x, wv, n), flush,
+                                            lambda n=n: fma_chain_reference(x, wv, n))
+        for n in CROSSOVER_N:
+            res[("fma", dt, n)] = device_ms(lambda n=n: fma_chain(x, wv, n), flush)
+        xp, k = pattern_inputs(dt, device)
+        res[("pattern", dt)] = device_ms(lambda: pattern_softmax(xp, k), flush,
+                                         lambda: pattern_softmax_reference(xp, k))
+    return res
 
 
 def crossover(times: dict[int, float]) -> tuple[int, int | None]:
@@ -128,11 +185,13 @@ def crossover(times: dict[int, float]) -> tuple[int, int | None]:
     return ns[-1], None
 
 
-def run(device) -> dict:
-    """The whole sweep; returns {('fma', dtype, n) | ('pattern', dtype):
+def run(device, alone: dict | None = None) -> dict:
+    """The whole sweep, with ``device_sweep``'s times (``alone``) printed
+    beside the chain times where given; returns {('fma', dtype, n) | ('pattern', dtype):
     {'ms', 'plain_ms'}, ('fma_ms', dtype): {n: ms} over N_FMA and
     CROSSOVER_N, ('floor', dtype): ms, ('marginal', dtype): rate,
-    ('crossover', dtype): (lo, hi), 'peak': rate}."""
+    ('crossover', dtype): (lo, hi), with ``alone`` ('crossover_alone',
+    dtype) from its cold times, 'peak': rate}."""
     res: dict = {}
     peak, how = fp32_fma_peak(device)
     res["peak"] = peak
@@ -144,7 +203,7 @@ def run(device) -> dict:
             ms = chain_ms(lambda t, n=n: fma_chain(t, wv, n), x)
             plain_ms = chain_ms(lambda t, n=n: fma_chain_reference(t, wv, n), x)
             res[("fma", dt, n)] = {"ms": ms, "plain_ms": plain_ms}
-            _line(f"fma chain n={n:3d} {name}", ms, plain_ms)
+            _line(f"fma chain n={n:3d} {name}", ms, plain_ms, alone and alone[("fma", dt, n)])
         times = {n: res[("fma", dt, n)]["ms"] for n in N_FMA}
         for n in CROSSOVER_N:
             times[n] = chain_ms(lambda t, n=n: fma_chain(t, wv, n), x)
@@ -166,13 +225,19 @@ def run(device) -> dict:
         print(f"   crossover (measured): the time first exceeds the n=2 time {times[2]:.4f} ms by more than "
               f"{CROSSOVER_RISE:.0%} " + (f"between n={lo} and n={hi}" if hi else f"at no n up to {lo}"),
               flush=True)
+        if alone is not None:
+            cold = {n: alone[("fma", dt, n)]["cold_ms"] for n in times}
+            lo, hi = res[("crossover_alone", dt)] = crossover(cold)
+            print("   on the device alone, cold, ms by n: " + ", ".join(f"{n}: {cold[n]:.4f}" for n in sorted(cold))
+                  + f"; crossover {f'between n={lo} and n={hi}' if hi else f'at no n up to {lo}'} (a chain time "
+                  "under the host's launch interval says nothing of the kernel)", flush=True)
     for dt in DTYPES:
         name = str(dt).removeprefix("torch.")
         x, k = pattern_inputs(dt, device)
         ms = chain_ms(lambda t: pattern_softmax(t, k), x)
         plain_ms = chain_ms(lambda t: pattern_softmax_reference(t, k), x)
         res[("pattern", dt)] = {"ms": ms, "plain_ms": plain_ms}
-        _line(f"pattern kernel ({name})", ms, plain_ms)
+        _line(f"pattern kernel ({name})", ms, plain_ms, alone and alone[("pattern", dt)])
     return res
 
 
@@ -182,7 +247,7 @@ def main() -> int:
         return 1
     dev = torch.device("cuda", 0)
     print(f"{torch.cuda.get_device_name(0)}: B={B} NH={NH} (R, C, W)=({R}, {C}, {W}) LOOP={LOOP}", flush=True)
-    run(dev)
+    run(dev, device_sweep(dev))
     return 0
 
 

@@ -1,6 +1,7 @@
-"""The CPU side of ``chip_smoke.py`` phase 7: reading the build's register
-report and kernel names, and the K1/K2 edge cases it holds on the card (run
-here through the wrappers, which take the plain versions on the CPU)."""
+"""The CPU side of ``chip_smoke.py`` phases 3, 7 and 11: reading the build's
+register report and kernel names, and the edge cases of K3, K1/K2 and K4/K5
+it holds on the card (run here through the wrappers, which take the plain
+versions on the CPU)."""
 
 import pytest
 
@@ -44,12 +45,12 @@ def test_ptxas_entries_reads_registers_and_spills_per_instance(tmp_path):
 def test_corrupt_edge_cases_cover_both_instances_and_the_staging_paths(sigma):
     cases = chip_smoke.corrupt_edge_cases("cpu", torch.Generator().manual_seed(0))
     names = [c[0] for c in cases]
-    assert names == [f"{w} C={c}" for c in (1, 2, 11, 16, 17, 32) for w in ("onehot", "probs")] + [
+    assert names == [f"{w} C={c}" for c in (1, 2, 11, 16, 17, 32, 33, 64, 128) for w in ("onehot", "probs")] + [
         "probs bf16", "probs unaligned"]
     for name, fn, ref, src, kw in cases:
         assert fn in (ck.corrupt_onehot, ck.corrupt_probs)
         n_px = 3 * 45 * 61
-        assert n_px % 128 == 43  # the last tile of the kernel is ragged
+        assert n_px % 128 == 43 and n_px % 64 == 43  # the last tile is ragged, in the wide instance too
         if fn is ck.corrupt_onehot:
             c = kw["n_classes"]
             assert int(src.min()) < 0 and int(src.max()) >= c  # void on both sides
@@ -59,3 +60,38 @@ def test_corrupt_edge_cases_cover_both_instances_and_the_staging_paths(sigma):
             assert src.data_ptr() % 16 != 0
         got = fn(src, 7, sigma=sigma, **kw)
         assert torch.equal(got, ref(src, 7, sigma=sigma, **kw))
+
+
+def test_kernel_edge_cases_reach_the_wide_instance():
+    """Phase 3's cases hold 33, 64 and 128 classes (the wide instance), its
+    y.W + b path, a strided map and bf16 logits beside an f32 iterate."""
+    cases = {c[0]: c for c in chip_smoke.edge_cases("cpu", torch.Generator().manual_seed(0))}
+    for tag in ("bf16", "f32"):
+        for c in chip_smoke.WIDE_CLASSES:
+            assert cases[f"C={c}_{tag}"][3].shape[-1] == c
+        assert cases[f"w_C=40_{tag}"][5].shape == (40, 40)
+        assert cases[f"strided_C=33_{tag}"][8] is True
+    name, dt, u, y, v, wm, bias, lab, strided = cases["C=128_bf16_u"]
+    assert (u.dtype, y.dtype) == (torch.bfloat16, torch.float32) and not strided
+    got, labels = chip_smoke.refine_tail(u, y, chip_smoke.EPS, with_labels=lab)
+    assert got.shape == y.shape and int(labels.max()) < 128
+
+
+def test_probe_edge_cases_cover_the_vector_ends_and_the_scalar_instance():
+    cases = chip_smoke.probe_edge_cases("cpu", torch.Generator().manual_seed(0))
+    names = [c[0] for c in cases]
+    assert len(names) == len(set(names)) == 2 * (7 + 9)
+    for tag in ("float32", "bfloat16"):
+        assert f"fma_chain {tag} n=1003 at element 3" in names
+        assert f"pattern_softmax {tag} (2, 1, 11, 33) at element 0" in names
+        assert any(n.startswith(f"pattern_softmax {tag} (2, 3, 11, 8) at element") and not n.endswith(" 0")
+                   for n in names)
+    for name, kernel, call, plain, f32_tol in cases:
+        got, want = call(), plain()
+        assert kernel in ("fma_chain", "pattern_softmax") and got.shape == want.shape
+        assert torch.equal(got, want)  # on the CPU both are the plain version
+        assert (f32_tol is None) == (kernel == "fma_chain")
+
+
+def test_pattern_ops_count_the_exponential_and_the_divide():
+    assert chip_smoke.PATTERN_OPS == 36

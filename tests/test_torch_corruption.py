@@ -34,6 +34,10 @@ from iterative_inference_segm_tpu_torch.ops import corruption_kernel as ck  # no
 C = 11
 SIGMA_TOL = 1e-6
 EXP_ULPS = 4 * 2.0**-23
+# At 128 classes the softmax's denominator has 128 terms: the port sums them
+# class by class, as its kernel does, XLA's CPU reduction over the 128 lanes
+# in another order (measured: 9.7 ulps apart at most; equal up to 33 classes)
+WIDE_SUM_ULPS = 16 * 2.0**-23
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +97,49 @@ def test_probs_plain_matches_pallas_kernel(jx, sigma):
         np.testing.assert_allclose(got.numpy(), want, rtol=EXP_ULPS, atol=0)
     else:
         assert np.abs(got.numpy() - want).max() <= SIGMA_TOL
+
+
+@pytest.mark.parametrize("n_classes", [33, 128])
+@pytest.mark.parametrize("which", ["onehot", "probs"])
+def test_plain_versions_match_pallas_kernels_above_32_classes(jx, which, n_classes):
+    """Up to the Pallas kernels' own 128 classes (one lane a class) the
+    counter pixel * 128 + class draws their bits: both within 1e-6 at sigma
+    = 1 with equal argmax; at sigma = 0 and 33 classes K1 bit-equal and K2
+    within 4 ulps, as at 11; at 128 classes both within 16 ulps, the order
+    of the denominator's sum."""
+    key = jx.jax.random.PRNGKey(7)
+    for sigma in (0.0, 1.0):
+        if which == "onehot":
+            lab = _labels(shape=(1, 20, 13), hi=n_classes + 2)
+            want = np.asarray(jx.onehot(jx.jnp.asarray(lab), key, n_classes=n_classes, sigma=sigma))
+            got = ck.corrupt_onehot(torch.from_numpy(lab), _seed(jx, key), n_classes=n_classes, sigma=sigma).numpy()
+        else:
+            p = _probs(shape=(1, 20, 13, n_classes))
+            want = np.asarray(jx.probs(jx.jnp.asarray(p), key, sigma=sigma))
+            got = ck.corrupt_probs(torch.from_numpy(p), _seed(jx, key), sigma=sigma).numpy()
+        assert got.shape == want.shape
+        if sigma > 0.0:
+            assert np.abs(got - want).max() <= SIGMA_TOL
+            assert (got.argmax(-1) == want.argmax(-1)).mean() == 1.0
+        elif n_classes == 128:
+            np.testing.assert_allclose(got, want, rtol=WIDE_SUM_ULPS, atol=0)
+        elif which == "onehot":
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=EXP_ULPS, atol=0)
+
+
+def test_more_than_128_classes_are_refused_as_in_jax(jx):
+    """The counter has room for 128 classes a pixel; both packages refuse
+    more, on any device."""
+    lab = np.zeros((1, 4, 4), np.int32)
+    with pytest.raises(ValueError, match="128"):
+        jx.onehot(jx.jnp.asarray(lab), jx.jax.random.PRNGKey(0), n_classes=129, sigma=1.0)
+    with pytest.raises(ValueError, match="129 classes.*1..128"):
+        ck.corrupt_onehot(torch.from_numpy(lab), 0, n_classes=129, sigma=1.0)
+    with pytest.raises(ValueError, match="129 classes.*1..128"):
+        ck.corrupt_probs(torch.full((1, 4, 4, 129), 1.0 / 129), 0, sigma=1.0)
+    assert ck.MAX_CLASSES == 128
 
 
 def test_probs_plain_takes_bf16_input_as_pallas_does(jx):
@@ -241,7 +288,10 @@ def _unaligned(t):
 # labels run from -2 to C + 1 (void below 0 and at or above C); probs in
 # bf16 (the wrapper widens them) or at an address that is not 16-byte
 # aligned (the kernel stages them element by element).
-CARD_CASES = [(w, c, "f32") for w in ("onehot", "probs") for c in (1, 2, 11, 16, 17, 32)] + [
+# 33, 64 and 128 classes take the wide instance (a pixel's classes in shared
+# memory, 64-pixel tiles: the last of 8235 pixels holds 43).
+CARD_CASES = [(w, c, "f32") for w in ("onehot", "probs") for c in (1, 2, 11, 16, 17, 32, 33, 64, 128)] + [
+    ("probs", 64, "bf16"), ("probs", 33, "unaligned"),
     ("probs", 11, "bf16"), ("probs", 2, "bf16"), ("probs", 11, "unaligned"),
 ]
 

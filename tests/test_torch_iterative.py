@@ -160,6 +160,25 @@ def test_make_refiner_matches_jax(general, mode, fcn):
     np.testing.assert_allclose(tyk.numpy(), np.asarray(jyk), **TOL)
 
 
+def test_general_engine_takes_40_classes_as_jax():
+    """No class cap on the CPU: a score-mode run at C = 40 (more than a
+    pixel's classes in the kernel's registers, 32) through the port's own
+    FCN, DAE and ``refine_tail`` agrees with the JAX engine, which has no
+    cap. The random layers are scaled by 0.1, not the helpers' 0.3: a logit
+    sums 40 inputs here, and at 0.3 it reaches 3e3, where its last ulp moves
+    a softmax value by more than the tolerance."""
+    jf, jd = jax_params(stem_pool=1, depth=3, n_classes=40, fcn_scale=0.1, dae_scale=0.1)
+    x = images()
+    kw = dict(eps=EPS, num_steps=3, mode="score", dae_kwargs={"depth": 3})
+    jy0, jyk = jit_.make_refiner(jfcn8.fcn8_apply, jdae.dae_apply, jf, jd, **kw)(jnp.asarray(x))
+    ty0, tyk = tit.make_refiner(tfcn8.fcn8_apply, tdae.dae_logits, both(jf)[1], both(jd)[1], **kw)(
+        torch.from_numpy(x))
+    assert tuple(tyk.shape) == (2, 48, 64, 40) and tyk.dtype == torch.float32
+    np.testing.assert_allclose(ty0.numpy(), np.asarray(jy0), **TOL)
+    np.testing.assert_allclose(tyk.numpy(), np.asarray(jyk), **TOL)
+    assert np.abs(np.asarray(jyk) - np.asarray(jy0)).max() > 1e-3  # the steps moved y
+
+
 @pytest.mark.parametrize("mode", ["score", "energy"])
 @pytest.mark.parametrize("stem_pool", [0, 1])
 def test_general_predictor_matches_jax(mode, stem_pool):

@@ -29,6 +29,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from iterative_inference_segm_tpu_torch.ops.refine_tail import (  # noqa: E402
+    MAX_CLASSES,
+    check_kernel_classes,
     refine_tail,
     refine_tail_reference,
 )
@@ -225,8 +227,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
         u = u[:, :3]
     elif case == "u_batch":
         u = u[:1]
-    elif case == "too_many_classes":
-        u, y = _maps(c=33)
+    elif case == "too_many_classes":  # no cap on the CPU; the kernel's own is named for a CUDA tensor
+        for c in (33, 128, 200):
+            u, y = _maps(c=c)
+            got, labels = refine_tail(u, y, EPS, with_labels=True)
+            assert torch.equal(got, refine_tail_reference(u, y, EPS)) and int(labels.max()) < c
+        assert MAX_CLASSES == 128
+        check_kernel_classes("refine_tail", MAX_CLASSES)
+        with pytest.raises(ValueError, match="129 classes on a CUDA tensor; the kernel takes 1..128"):
+            check_kernel_classes("refine_tail", MAX_CLASSES + 1)
+        u, y = _maps(c=1)
+        u, y = u[..., :0], y[..., :0]  # and no classes at all are refused anywhere
     elif case == "rank":
         u, y = u[0], y[0]
     elif case == "w_dtype":
@@ -261,6 +272,9 @@ CARD_CASES = [
     ("labels", (6, 40), (7, 43), 1), ("labels", (6, 40), (7, 43), 16),
     ("labels", (6, 40), (7, 43), 17), ("labels", (6, 40), (7, 43), 32),
     ("strided", (45, 61), (48, 66), C),
+    # 33..128 classes: the wide instance, a pixel's classes in shared memory
+    ("labels", (6, 40), (7, 43), 33), ("labels", (5, 200), (6, 203), 64), ("labels", (6, 40), (7, 43), 128),
+    ("w", (6, 40), None, 40), ("u_bf16", (6, 140), (7, 143), 128), ("strided", (6, 40), (7, 43), 33),
 ]
 
 
@@ -293,3 +307,14 @@ def test_kernel_matches_plain_version_on_card(cuda_device, dtype, variant, hw, u
         assert (labels.cpu() == want_labels).float().mean() >= 0.999
     tol = 1e-5 if y.dtype == torch.float32 else 2.0**-8
     assert (got.cpu().float() - want.float()).abs().max() <= tol
+
+
+@pytest.mark.cuda
+def test_more_than_128_classes_raise_on_card(cuda_device):
+    """The JAX engines have no cap; the kernel keeps a pixel's classes on
+    chip and takes 128. A CUDA tensor is never handed to the plain version."""
+    u, y = _maps(c=MAX_CLASSES + 1)
+    before = refine_tail.launches
+    with pytest.raises(ValueError, match="takes 1..128"):
+        refine_tail(u.to(cuda_device), y.to(cuda_device), EPS)
+    assert refine_tail.launches == before

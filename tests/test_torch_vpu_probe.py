@@ -250,9 +250,67 @@ def test_fma_kernel_matches_plain_version_on_card(cuda_device, dtype, n_fma):
         assert (err <= 2.0**-7 * want.float().abs()).all()  # one bf16 ulp of the value
 
 
+# K4's vector path: lengths around one 16-byte vector (4 f32, 8 bf16), and
+# views that start 1, 3 and 5 elements into a 16-byte-aligned buffer, so that
+# a scalar head, the vectors and a scalar tail all run; n_fma = 45 runs the
+# loop unrolled by 32, the one by 8 and the remainder.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 36, 11, 240), (3, 5, 4, 7), (1, 1, 16, 33)])
+@pytest.mark.parametrize("length,offset", [(1, 0), (7, 0), (8, 0), (9, 0), (1000, 1), (1003, 3), (37, 5), (3, 1)])
+def test_fma_kernel_vector_ends_on_card(cuda_device, dtype, length, offset):
+    base = torch.randn(length + offset, generator=torch.Generator().manual_seed(6)).to(dtype)
+    x = base.to(cuda_device)[offset:]
+    assert x.data_ptr() % 16 == (offset * x.element_size()) % 16
+    before = fma_chain.launches
+    got = fma_chain(x, W8, 45)
+    torch.cuda.synchronize()
+    assert fma_chain.launches == before + 1 and got.shape == x.shape and got.is_contiguous()
+    want = fma_chain_reference(base[offset:], W8, 45)
+    if dtype == torch.float32:
+        assert torch.equal(got.cpu(), want)
+    else:
+        err = (got.cpu().float() - want.float()).abs()
+        assert (err <= 2.0**-7 * want.float().abs()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pattern_kernel_takes_a_view_off_the_vector_boundary(cuda_device, dtype):
+    """W = 8 fits the vector instance, but a view one element into its
+    buffer does not start on the vector's boundary: the scalar instance."""
+    base = torch.randn(1 + 2 * 3 * 11 * 8, generator=torch.Generator().manual_seed(8)).to(dtype)
+    x = base.to(cuda_device)[1:].view(2, 3, 11, 8)
+    assert x.is_contiguous() and x.data_ptr() % 8 == x.element_size()
+    k = torch.linspace(0.5, 1.5, 11)
+    got = pattern_softmax(x, k.to(cuda_device))
+    torch.cuda.synchronize()
+    want = pattern_softmax_reference(base[1:].view(2, 3, 11, 8), k).float()
+    assert (got.cpu().float() - want).abs().max() <= (1e-6 if dtype == torch.float32 else 2.0**-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_versions_take_views_as_their_contiguous_copies(dtype):
+    """A view with strides (every other column; a transposed pair of axes;
+    an odd element offset) gives what its contiguous copy gives."""
+    g = torch.Generator().manual_seed(7)
+    big = torch.randn((2, 5, 11, 21), generator=g).to(dtype)
+    k = torch.linspace(0.5, 1.5, 11)
+    for view in (big[..., ::2], big[:, 1:4], big.transpose(0, 1), big.reshape(-1)[1:-1]):
+        assert not view.is_contiguous() or view.storage_offset() % 2 == 1
+        assert torch.equal(fma_chain(view, W8, 9), fma_chain_reference(view.contiguous(), W8, 9))
+        if view.dim() == 4:
+            assert torch.equal(pattern_softmax(view, k), pattern_softmax_reference(view.contiguous(), k))
+
+
+# K5's instances: W = 240, 700, 8 and 4 are multiples of the 4 elements a
+# thread takes, so rows start on the vector's boundary and the vector
+# instance runs (C = 11 exactly unrolled, C = 4 and 16 against a run-time
+# C); W = 7, 33 and 1 take the scalar instance; R = 1 has no row below.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 36, 11, 240), (3, 5, 4, 7), (1, 1, 16, 33), (2, 1, 4, 7), (2, 1, 11, 33),
+                                   (1, 1, 16, 240), (2, 3, 11, 7), (1, 5, 16, 33), (2, 3, 4, 240),
+                                   (1, 2, 11, 700), (3, 4, 11, 1), (2, 3, 16, 8), (1, 2, 5, 4)])
 def test_pattern_kernel_matches_plain_version_on_card(cuda_device, dtype, shape):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(dtype)
     k = torch.linspace(0.5, 1.5, shape[2])
@@ -262,4 +320,5 @@ def test_pattern_kernel_matches_plain_version_on_card(cuda_device, dtype, shape)
     assert pattern_softmax.launches == before + 1
     want = pattern_softmax_reference(x, k).float()
     tol = 1e-6 if dtype == torch.float32 else 2.0**-8
+    assert got.shape == x.shape and got.dtype == dtype
     assert (got.cpu().float() - want).abs().max() <= tol

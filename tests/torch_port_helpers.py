@@ -33,12 +33,12 @@ def randomized(tree, seed, scale=0.3):
     return out
 
 
-def jax_params(stem_pool=1, depth=3, tail="full", encoder_seed=1, fcn_scale=0.3):
-    fcn = randomized(jfcn8.init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16), 0, fcn_scale)
+def jax_params(stem_pool=1, depth=3, tail="full", encoder_seed=1, fcn_scale=0.3, n_classes=C, dae_scale=0.3):
+    fcn = randomized(jfcn8.init_fcn8(jax.random.PRNGKey(0), n_classes=n_classes, fc_channels=16), 0, fcn_scale)
     dae = randomized(jdae.init_dae(
-        jax.random.PRNGKey(encoder_seed), n_classes=C, h_specs={"pool4": 512}, depth=depth,
+        jax.random.PRNGKey(encoder_seed), n_classes=n_classes, h_specs={"pool4": 512}, depth=depth,
         stem_pool=stem_pool, widths=(8, 16, 32, 64)[:depth], tail=tail,
-    ), encoder_seed)
+    ), encoder_seed, dae_scale)
     return fcn, dae
 
 
