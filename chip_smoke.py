@@ -855,9 +855,11 @@ def probe_edge_cases(dev, gen):
     the loop unrolled by 32, the one by 8, the remainder): lengths that are
     no multiple of a 16-byte vector, and views 1, 3 and 5 elements into an
     aligned buffer (a scalar head, the vectors, a scalar tail). K5: C in
-    {4, 11, 16}; W = 7, 33 and 1 (no multiple of the 4 elements a thread
-    takes: the scalar instance); one row (none below); W = 700; a view of
-    W = 8 one element off the vector's boundary."""
+    {4, 11, 16}; W = 7, 33 and 1 (no multiple of the 4 w a thread takes:
+    tiles whose spans start off a 16-byte boundary, computed one w a
+    thread); one row (none below); 4 and 5 rows (last tiles of 1 and 2);
+    W = 700; 16 x 1000, of which only one row fits a tile in f32; a view
+    of W = 8 one element off the 4-element boundary."""
     cases = []
     w8 = tuple(torch.linspace(0.9, 1.1, 8).tolist())
     for dt in probe_tool.DTYPES:
@@ -867,7 +869,7 @@ def probe_edge_cases(dev, gen):
             cases.append((f"fma_chain {tag} n={length} at element {offset}", "fma_chain",
                           lambda x=x: vp.fma_chain(x, w8, 45), lambda x=x: vp.fma_chain_reference(x, w8, 45), None))
         shapes = [(2, 1, 4, 7), (2, 1, 11, 33), (1, 1, 16, 240), (2, 3, 11, 7), (1, 5, 16, 33), (2, 3, 4, 240),
-                  (1, 2, 11, 700), (3, 4, 11, 1)]
+                  (1, 2, 11, 700), (3, 4, 11, 1), (1, 4, 16, 1000)]
         views = [torch.randn(s, generator=gen).to(dev, dt) for s in shapes]
         views.append(torch.randn(1 + 2 * 3 * 11 * 8, generator=gen).to(dev, dt)[1:].view(2, 3, 11, 8))
         for x in views:
@@ -929,6 +931,12 @@ def run_probe_phase(dev):
         if not ok or got.shape != want.shape or not got.is_contiguous():
             raise AssertionError(f"{name}: disagrees with its plain version (max abs err {err:.3e})")
         phase("probe", f"{name}: max abs err {err:.3e}")
+    try:  # a tile of one 16 x 1300 f32 row, the row below and the results is over a block's shared memory
+        vp.pattern_softmax(torch.zeros((1, 2, 16, 1300), device=dev), torch.ones(16, device=dev))
+    except ValueError as e:
+        phase("probe", f"pattern_softmax refuses a row that does not fit: {e}")
+    else:
+        raise AssertionError("pattern_softmax took a row that does not fit a block's shared memory")
 
     # each case on the device alone (cold after a read flush of the L2, and
     # warm), against its bound; an empty kernel through the same route

@@ -46,29 +46,31 @@
 //   split serves both: a scalar head up to the first 16-byte boundary, the
 //   vectors, a scalar tail; the ends are done by the first threads of the
 //   grid.
-// - K5: a thread takes 4 consecutive w of one (n, r) and all C classes: per
-//   class one vector load of its row (16 bytes in f32) and one of the row
-//   below, the two neighbours outside the vector as scalars (the two inside
-//   are already in registers), and one vector store; 4 load instructions a
-//   class for 4 pixels where the first form issued 16. The 4 C elements a
-//   thread holds are independent until the softmax, so the loads of later
-//   classes are in flight while the first are computed, with no barrier
-//   and no shared memory. C = 11 has an exact instance whose class loops
-//   unroll with no test. In bf16 a thread takes 4 w too (8-byte accesses):
-//   8 w a thread (16 bytes) halves the threads and needs 122 registers, and
-//   measured 12% slower. Maps whose rows do not start on the vector's
-//   boundary (W % 4 != 0, or a view at an odd offset) take the scalar
-//   instance, which is the first form.
-//   Tiles staged through shared memory with 16-byte cp.async copies and
-//   stored from it, on the template of refine_tail.cu, measured 30% slower
-//   than this (PERF.md): at this size every block is resident at once, so
-//   all of them copy, then compute, then store in step, and nothing
-//   overlaps; a grid looping over tiles with the next one in flight was no
-//   faster.
+// - K5, on the template of refine_tail.cu: a block takes a tile of kPatRows
+//   rows r of one n, all C, all W, plus the one row below, which is one
+//   contiguous span of the (N, R, C, W) map. It stages the span into shared
+//   memory with 16-byte cp.async copies from the 16-byte-aligned address at
+//   or below it (a span that starts off a boundary carries its head), so
+//   every element is read from device memory once and the row below is
+//   shared by the tile's rows. Threads compute from shared memory, 4
+//   consecutive w of one row and all C classes each (one vector read of the
+//   row and one of the row below a class; of the four neighbours along w
+//   two are already in registers), write the result to a second region, and
+//   the block stores it 16 bytes at a time (element stores at a span's
+//   unaligned ends). C = 11 has an exact instance whose class loops unroll
+//   with no test. Maps whose rows do not start on a 4-element boundary
+//   (W % 4 != 0, or a view at an odd offset) are staged and stored the same
+//   way and computed one w a thread. The tile loses rows where kPatRows do
+//   not fit the card's shared memory; a map whose single row does not fit
+//   is refused.
+//   At the probe's (32, 36, 11, 240) three rows a tile and 256 threads put
+//   all 384 blocks on the card at once, three an SM (74 KB each in f32);
+//   tiles of one or two rows need a second round of blocks in f32 and were
+//   14% slower or more. Loading 4 w a thread straight from device memory,
+//   with no shared memory, measured 12% (f32) and 6% (bf16) faster than
+//   this, with 8-byte accesses in bf16 (PERF.md has both side by side).
 //
-// The tuning constants can be set from the compiler's command line
-// (tools/probe_sweep.py builds and times the candidates); the defaults are
-// what was fastest cold on an H100 (PERF.md).
+// The constants below are what was fastest cold on an H100 (PERF.md).
 //
 // Plain C interface (loaded with ctypes by ops/vpu_probe.py); each launch
 // returns the CUDA error of its set-up or launch so the wrapper can raise.
@@ -77,24 +79,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef K4_THREADS
-#define K4_THREADS 256
-#endif
-#ifndef K4_BLOCKS  // resident blocks an SM the kernel is held to
-#define K4_BLOCKS 8
-#endif
-#ifndef K4_UNROLL  // a multiple of 8
-#define K4_UNROLL 32
-#endif
-#ifndef K5_VECTOR  // 0: every shape takes the scalar instance (the first form), to time it side by side
-#define K5_VECTOR 1
-#endif
-#ifndef K5_THREADS
-#define K5_THREADS 64
-#endif
-#ifndef K5_BF16_V  // bf16 elements a thread: 4 (8 bytes) or 8 (16 bytes)
-#define K5_BF16_V 4
-#endif
+#include <atomic>
 
 namespace {
 
@@ -102,28 +87,38 @@ struct Weights {
   float v[8];
 };
 
-constexpr int kFmaThreads = K4_THREADS;
-constexpr int kFmaBlocks = K4_BLOCKS;
-constexpr int kFmaUnroll = K4_UNROLL;
+constexpr int kFmaThreads = 256;
+constexpr int kFmaBlocks = 8;   // resident blocks an SM the kernel is held to
+constexpr int kFmaUnroll = 32;  // a multiple of 8
 static_assert(kFmaUnroll % 8 == 0, "step k + j takes weight j & 7 only from a multiple of 8");
 
-// V elements of T (16 bytes, or 8) as f32 values.
+// V elements of T as one word of V * sizeof(T) bytes (Raw), and as f32 values.
 template <typename T, int V>
 struct Pack;
 template <>
+struct Pack<float, 1> {
+  using Raw = float;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&v)[1]) { v[0] = q; }
+  static __device__ __forceinline__ Raw pack(const float (&v)[1]) { return v[0]; }
+};
+template <>
 struct Pack<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  using Raw = float4;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&v)[4]) {
     v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
   }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
+  static __device__ __forceinline__ Raw pack(const float (&v)[4]) { return make_float4(v[0], v[1], v[2], v[3]); }
+};
+template <>
+struct Pack<__nv_bfloat16, 1> {
+  using Raw = __nv_bfloat16;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&v)[1]) { v[0] = __bfloat162float(q); }
+  static __device__ __forceinline__ Raw pack(const float (&v)[1]) { return __float2bfloat16_rn(v[0]); }
 };
 template <>
 struct Pack<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[4]) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  using Raw = uint2;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&v)[4]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -131,18 +126,18 @@ struct Pack<__nv_bfloat16, 4> {
       v[2 * i] = f.x, v[2 * i + 1] = f.y;
     }
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[4]) {
-    uint2 q;
+  static __device__ __forceinline__ Raw pack(const float (&v)[4]) {
+    Raw q;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 2; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint2*>(p) = q;
+    return q;
   }
 };
 template <>
 struct Pack<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+  using Raw = uint4;
+  static __device__ __forceinline__ void unpack(const Raw& q, float (&v)[8]) {
     const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -150,19 +145,29 @@ struct Pack<__nv_bfloat16, 8> {
       v[2 * i] = f.x, v[2 * i + 1] = f.y;
     }
   }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
-    uint4 q;
+  static __device__ __forceinline__ Raw pack(const float (&v)[8]) {
+    Raw q;
     __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
 #pragma unroll
     for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = q;
+    return q;
   }
 };
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+// V elements at p (aligned to their word): from device memory through the
+// read-only path, from any memory, and to any memory.
+template <typename T, int V>
+__device__ __forceinline__ void load_global(const T* p, float (&v)[V]) {
+  Pack<T, V>::unpack(__ldg(reinterpret_cast<const typename Pack<T, V>::Raw*>(p)), v);
+}
+template <typename T, int V>
+__device__ __forceinline__ void load(const T* p, float (&v)[V]) {
+  Pack<T, V>::unpack(*reinterpret_cast<const typename Pack<T, V>::Raw*>(p), v);
+}
+template <typename T, int V>
+__device__ __forceinline__ void store(T* p, const float (&v)[V]) {
+  *reinterpret_cast<typename Pack<T, V>::Raw*>(p) = Pack<T, V>::pack(v);
+}
 
 // V independent chains: acc[v] = fmaf(x[v], w[i & 7], acc[v]) for i < n_fma.
 template <int V>
@@ -202,178 +207,224 @@ __global__ void __launch_bounds__(kFmaThreads, kFmaBlocks) fma_chain_kernel(
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n_vec) {
     float xv[V], acc[V];
-    Pack<T, V>::load(x + head + i * V, xv);
+    load_global<T, V>(x + head + i * V, xv);
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[v] = xv[v];
     chain<V>(acc, xv, n_fma, w);
-    Pack<T, V>::store(out + head + i * V, acc);
+    store<T, V>(out + head + i * V, acc);
   }
   const long long tail = head + n_vec * V;  // the first element after the vectors
   if (i < head + (n - tail)) {              // the two ends: fewer than 2 V elements
     const long long e = i < head ? i : tail + (i - head);
-    float xs[1] = {load(x + e)};
-    float as[1] = {xs[0]};
+    float xs[1], as[1];
+    load_global<T, 1>(x + e, xs);
+    as[0] = xs[0];
     chain<1>(as, xs, n_fma, w);
-    store(out + e, as[0]);
+    store<T, 1>(out + e, as);
   }
 }
 
 constexpr int kCMax = 16;
-constexpr int kPatThreads = K5_THREADS;
+constexpr int kPatThreads = 256;
+constexpr int kPatRows = 3;  // rows r of a tile, before the one below
+constexpr int kPatVec = 4;   // consecutive w a thread takes where rows start on that boundary
+constexpr int kPatSharedMost = 227 * 1024;  // the card's shared memory a block
 
-// The scalar instance (the first form): one (n, r, w) pixel column a thread,
-// for maps whose rows do not start on the vector's boundary.
-
-template <typename T>
-__global__ void __launch_bounds__(256) pattern_softmax_scalar_kernel(
-    const T* __restrict__ x, const float* __restrict__ kc, T* __restrict__ out,
-    int N, int R, int C, int W) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)N * R * W) return;
-  const int w = (int)(t % W);
-  const long long nr = t / W;  // n * R + r
-  const int r = (int)(nr % R);
-  const long long row = nr * C * W + w;  // element (n, r, 0, w)
-  const long long cw = (long long)C * W;
-
-  float s[kCMax];
-#pragma unroll
-  for (int c = 0; c < kCMax; ++c) {
-    if (c < C) {
-      const float k = __ldg(kc + c);
-      const T* p = x + row + (long long)c * W;
-      const float a = __fmul_rn(load(p), k);
-      const float left = w > 0 ? __fmul_rn(load(p - 1), k) : 0.0f;
-      const float right = w < W - 1 ? __fmul_rn(load(p + 1), k) : 0.0f;
-      const float up = r < R - 1 ? __fmul_rn(load(p + cw), k) : 0.0f;
-      float v = __fadd_rn(a, __fmul_rn(0.5f, left));
-      v = __fadd_rn(v, __fmul_rn(0.25f, right));
-      s[c] = __fadd_rn(v, __fmul_rn(0.125f, up));
-    }
-  }
-  const float s3 = s[3];  // the value before the update, for every class
-#pragma unroll
-  for (int c = 0; c < kCMax; ++c)
-    if (c < C) s[c] = __fadd_rn(s[c], __fmul_rn(s3, 0.01f));
-  float m = s[0];
-#pragma unroll
-  for (int c = 1; c < kCMax; ++c)
-    if (c < C) m = fmaxf(m, s[c]);
-  float sum = 0.0f;
-#pragma unroll
-  for (int c = 0; c < kCMax; ++c) {
-    if (c < C) {
-      s[c] = expf(__fadd_rn(s[c], -m));
-      sum = __fadd_rn(sum, s[c]);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kCMax; ++c)
-    if (c < C) store(out + row + (long long)c * W, __fdiv_rn(s[c], sum));
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The vector instance: a thread takes V consecutive w of one (n, r), all
-// classes: per class one vector load of the row, one of the row below, and
-// the neighbours either side of the vector as scalars; a vector store per
-// class. Every row starts on the vector's boundary (W % V == 0). kExact:
-// C == CMAX, so the class loops unroll with no test of c < C.
-template <typename T, int V, int CMAX, bool kExact>
-__global__ void __launch_bounds__(kPatThreads) pattern_softmax_vec_kernel(
-    const T* __restrict__ x, const float* __restrict__ kc, T* __restrict__ out,
-    int N, int R, int C_, int W) {
-  const int C = kExact ? CMAX : C_;
-  const int wv = W / V;  // vectors a row
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)N * R * wv) return;
-  const int w0 = (int)(t % wv) * V;
-  const long long nr = t / wv;  // n * R + r
-  const int r = (int)(nr % R);
-  const long long row = nr * C * W + w0;  // element (n, r, 0, w0)
-  const long long cw = (long long)C * W;
-  const bool has_left = w0 > 0, has_right = w0 + V < W, has_up = r < R - 1;
+// Stage the n elements at src into dst with 16-byte cp.async copies from the
+// 16-byte-aligned address at or below src. Returns the byte in dst at which
+// the span starts (its head).
+template <typename T>
+__device__ __forceinline__ int stage(unsigned char* dst, const T* src, int n) {
+  const int head = (int)(reinterpret_cast<uintptr_t>(src) & 15);
+  const unsigned char* a = reinterpret_cast<const unsigned char*>(src) - head;
+  const int chunks = (head + n * (int)sizeof(T) + 15) >> 4;
+  for (int k = threadIdx.x; k < chunks; k += blockDim.x) cp_async16(dst + 16 * k, a + 16 * k);
+  return head;
+}
 
-  float s[CMAX][V];
-#pragma unroll
-  for (int c = 0; c < CMAX; ++c) {
-    if (c < C) {
-      const float k = __ldg(kc + c);
-      const T* p = x + row + (long long)c * W;
-      float a[V], up[V];
-      Pack<T, V>::load(p, a);
-#pragma unroll
-      for (int i = 0; i < V; ++i) a[i] = __fmul_rn(a[i], k);
-      if (has_up) {
-        Pack<T, V>::load(p + cw, up);
-#pragma unroll
-        for (int i = 0; i < V; ++i) up[i] = __fmul_rn(up[i], k);
-      } else {
-#pragma unroll
-        for (int i = 0; i < V; ++i) up[i] = 0.0f;
-      }
-      const float left = has_left ? __fmul_rn(load(p - 1), k) : 0.0f;
-      const float right = has_right ? __fmul_rn(load(p + V), k) : 0.0f;
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float v = __fadd_rn(a[i], __fmul_rn(0.5f, i > 0 ? a[i - 1] : left));
-        v = __fadd_rn(v, __fmul_rn(0.25f, i < V - 1 ? a[i + 1] : right));
-        s[c][i] = __fadd_rn(v, __fmul_rn(0.125f, up[i]));
-      }
-    }
+// Store n elements to dst from src, which holds them from byte (dst & 15):
+// 16-byte stores for the whole chunks, element stores at the two ends (the
+// chunks there are shared with the neighbouring tiles).
+template <typename T>
+__device__ __forceinline__ void store_span(T* dst, const unsigned char* src, int n) {
+  const uintptr_t d = reinterpret_cast<uintptr_t>(dst);
+  const int head = (int)(d & 15);
+  unsigned char* base = reinterpret_cast<unsigned char*>(d - head);
+  const int end = head + n * (int)sizeof(T);
+  const int a = (head + 15) & ~15, e = end & ~15;
+  for (int k = (a >> 4) + threadIdx.x; k < (e >> 4); k += blockDim.x)
+    reinterpret_cast<uint4*>(base)[k] = reinterpret_cast<const uint4*>(src)[k];
+  const int lo_end = min(a, end), hi_start = max(lo_end, e);  // a span inside one chunk: all "lo"
+  const int n_lo = (lo_end - head) / (int)sizeof(T), n_hi = (end - hi_start) / (int)sizeof(T);
+  for (int i = threadIdx.x; i < n_lo + n_hi; i += blockDim.x) {
+    const int byte = i < n_lo ? head + i * (int)sizeof(T) : hi_start + (i - n_lo) * (int)sizeof(T);
+    *reinterpret_cast<T*>(base + byte) = *reinterpret_cast<const T*>(src + byte);
   }
-#pragma unroll
-  for (int i = 0; i < V; ++i) {
-    const float s3 = s[3][i];  // the value before the update, for every class
-#pragma unroll
-    for (int c = 0; c < CMAX; ++c)
-      if (c < C) s[c][i] = __fadd_rn(s[c][i], __fmul_rn(s3, 0.01f));
-    float m = s[0][i];
-#pragma unroll
-    for (int c = 1; c < CMAX; ++c)
-      if (c < C) m = fmaxf(m, s[c][i]);
-    float sum = 0.0f;
+}
+
+// One block a tile: rows [r0, r0 + rows) of one n, all C, all W, and the row
+// below the last where the map has one. A thread takes V consecutive w of
+// one row and all classes at a time; V > 1 needs every row of both regions
+// on a V-element boundary (W % V == 0, x and out aligned to V elements).
+// kExact: C == CMAX, so the class loops unroll with no test of c < C.
+// reg_in: the shared bytes of the staged input, a multiple of 16.
+template <typename T, int V, int CMAX, bool kExact>
+__global__ void __launch_bounds__(kPatThreads) pattern_softmax_kernel(
+    const T* __restrict__ x, const float* __restrict__ kc, T* __restrict__ out,
+    int R, int C_, int W, int rows, int tiles, int reg_in) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int C = kExact ? CMAX : C_;
+  const int n = blockIdx.x / tiles;
+  const int r0 = (blockIdx.x - n * tiles) * rows;
+  const int n_rows = min(rows, R - r0);
+  const int in_rows = min(n_rows + 1, R - r0);
+  const int slab = C * W;  // elements of one (n, r)
+  const long long first = ((long long)n * R + r0) * slab;
+  const int head = stage(smem, x + first, in_rows * slab);
+  T* dst = out + first;
+  unsigned char* s_out = smem + reg_in;
+  cp_async_wait_all();
+  __syncthreads();
+
+  const T* xi = reinterpret_cast<const T*>(smem + head);
+  T* so = reinterpret_cast<T*>(s_out + (reinterpret_cast<uintptr_t>(dst) & 15));
+  const int wv = W / V;  // items a row
+  for (int item = threadIdx.x; item < n_rows * wv; item += kPatThreads) {
+    const int rr = item / wv, w0 = (item - rr * wv) * V;
+    const int at = rr * slab + w0;  // element (rr, 0, w0) of the tile
+    const bool has_left = w0 > 0, has_right = w0 + V < W, has_up = rr + 1 < in_rows;
+
+    float s[CMAX][V];
 #pragma unroll
     for (int c = 0; c < CMAX; ++c) {
       if (c < C) {
-        s[c][i] = expf(__fadd_rn(s[c][i], -m));
-        sum = __fadd_rn(sum, s[c][i]);
+        const float k = __ldg(kc + c);
+        const T* p = xi + at + c * W;
+        float a[V], up[V], left[1] = {0.0f}, right[1] = {0.0f};
+        load<T, V>(p, a);
+#pragma unroll
+        for (int i = 0; i < V; ++i) a[i] = __fmul_rn(a[i], k);
+        if (has_up) {
+          load<T, V>(p + slab, up);
+#pragma unroll
+          for (int i = 0; i < V; ++i) up[i] = __fmul_rn(up[i], k);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) up[i] = 0.0f;
+        }
+        if (has_left) {
+          load<T, 1>(p - 1, left);
+          left[0] = __fmul_rn(left[0], k);
+        }
+        if (has_right) {
+          load<T, 1>(p + V, right);
+          right[0] = __fmul_rn(right[0], k);
+        }
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float v = __fadd_rn(a[i], __fmul_rn(0.5f, i > 0 ? a[i - 1] : left[0]));
+          v = __fadd_rn(v, __fmul_rn(0.25f, i < V - 1 ? a[i + 1] : right[0]));
+          s[c][i] = __fadd_rn(v, __fmul_rn(0.125f, up[i]));
+        }
       }
     }
 #pragma unroll
-    for (int c = 0; c < CMAX; ++c)
-      if (c < C) s[c][i] = __fdiv_rn(s[c][i], sum);
-  }
+    for (int i = 0; i < V; ++i) {
+      const float s3 = s[3][i];  // the value before the update, for every class
 #pragma unroll
-  for (int c = 0; c < CMAX; ++c)
-    if (c < C) Pack<T, V>::store(out + row + (long long)c * W, s[c]);
+      for (int c = 0; c < CMAX; ++c)
+        if (c < C) s[c][i] = __fadd_rn(s[c][i], __fmul_rn(s3, 0.01f));
+      float m = s[0][i];
+#pragma unroll
+      for (int c = 1; c < CMAX; ++c)
+        if (c < C) m = fmaxf(m, s[c][i]);
+      float sum = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c) {
+        if (c < C) {
+          s[c][i] = expf(__fadd_rn(s[c][i], -m));
+          sum = __fadd_rn(sum, s[c][i]);
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < CMAX; ++c)
+        if (c < C) s[c][i] = __fdiv_rn(s[c][i], sum);
+    }
+#pragma unroll
+    for (int c = 0; c < CMAX; ++c)
+      if (c < C) store<T, V>(so + at + c * W, s[c]);
+  }
+  __syncthreads();  // the tile's output is staged
+
+  store_span(dst, s_out, n_rows * slab);
 }
 
 __global__ void empty_kernel() {}
 
-unsigned blocks_for(long long n, int threads) { return (unsigned)((n + threads - 1) / threads); }
+int round16(int n) { return (n + 15) & ~15; }
+
+// Once an instance (one `configured` word each) a device: allow the most
+// shared memory a launch may ask for, and give the unified L1/shared memory
+// to shared memory first (the copies bypass L1, cp.async.cg).
+template <typename K>
+cudaError_t configure_once(K kernel, std::atomic<unsigned long long>& configured) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);  // one bit a device
+  if (configured.load() & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPatSharedMost);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  configured.fetch_or(bit);
+  return cudaSuccess;
+}
+
+template <typename T, int V, int CMAX, bool kExact>
+cudaError_t launch_pattern(const T* x, const float* kc, T* out, int N, int R, int C, int W,
+                           cudaStream_t stream) {
+  auto kernel = pattern_softmax_kernel<T, V, CMAX, kExact>;
+  static std::atomic<unsigned long long> configured{0};
+  const cudaError_t err = configure_once(kernel, configured);
+  if (err != cudaSuccess) return err;
+  // shared bytes of a tile: rows + 1 rows in and rows out, each with the
+  // up-to-15-byte head its span starts at
+  const long long slab = (long long)C * W * (long long)sizeof(T);
+  int rows = kPatRows < R ? kPatRows : R;
+  while (rows > 1 && (2 * rows + 1) * slab + 64 > kPatSharedMost) --rows;
+  if ((2 * rows + 1) * slab + 64 > kPatSharedMost) return cudaErrorInvalidValue;
+  const int reg_in = round16((rows + 1) * (int)slab) + 16;
+  const int smem = reg_in + round16(rows * (int)slab) + 16;
+  const int tiles = (R + rows - 1) / rows;
+  const long long blocks = (long long)N * tiles;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kPatThreads, smem, stream>>>(x, kc, out, R, C, W, rows, tiles, reg_in);
+  return cudaGetLastError();
+}
 
 template <typename T>
 cudaError_t run_pattern(const void* x_, const float* kc, void* out_, int N, int R, int C, int W,
                         cudaStream_t stream) {
   const T* x = static_cast<const T*>(x_);
   T* out = static_cast<T*>(out_);
-  const long long pixels = (long long)N * R * W;
-  if ((pixels + kPatThreads - 1) / kPatThreads > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-#if K5_VECTOR
-  constexpr int V = sizeof(T) == 4 ? 4 : K5_BF16_V;
-  constexpr int kAlign = V * (int)sizeof(T) - 1;
-  if (W % V == 0 && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & kAlign) == 0) {
-    // the probe's 11 classes unroll exactly; other counts run loops tested
-    // against a run-time C
-    const unsigned blocks = blocks_for(pixels / V, kPatThreads);
-    if (C == 11)
-      pattern_softmax_vec_kernel<T, V, 11, true><<<blocks, kPatThreads, 0, stream>>>(x, kc, out, N, R, C, W);
-    else
-      pattern_softmax_vec_kernel<T, V, kCMax, false><<<blocks, kPatThreads, 0, stream>>>(x, kc, out, N, R, C, W);
-    return cudaGetLastError();
-  }
-#endif
-  pattern_softmax_scalar_kernel<T><<<blocks_for(pixels, 256), 256, 0, stream>>>(x, kc, out, N, R, C, W);
-  return cudaGetLastError();
+  constexpr int kAlign = kPatVec * (int)sizeof(T) - 1;
+  const bool vec =
+      W % kPatVec == 0 && ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & kAlign) == 0;
+  // the probe's 11 classes unroll exactly; other counts run loops tested
+  // against a run-time C
+  if (vec && C == 11) return launch_pattern<T, kPatVec, 11, true>(x, kc, out, N, R, C, W, stream);
+  if (vec) return launch_pattern<T, kPatVec, kCMax, false>(x, kc, out, N, R, C, W, stream);
+  return launch_pattern<T, 1, kCMax, false>(x, kc, out, N, R, C, W, stream);
 }
 
 template <typename T>
@@ -406,7 +457,9 @@ extern "C" int fma_chain_launch(int dtype, const void* x, void* out, long long n
   return (int)run_fma<__nv_bfloat16>(x, out, n, n_fma, w, st);
 }
 
-// K5. x, out: contiguous (N, R, C, W) of the dtype; kc: C float32 on the card.
+// K5. x, out: contiguous (N, R, C, W) of the dtype; kc: C float32 on the
+// card. Three C x W rows of the dtype (two staged, one of results) must fit
+// a block's shared memory.
 extern "C" int pattern_softmax_launch(int dtype, const void* x, const void* kc, void* out,
                                       int N, int R, int C, int W, void* stream) {
   if (N < 1 || R < 1 || W < 1 || C < 4 || C > kCMax || (dtype != 0 && dtype != 1))

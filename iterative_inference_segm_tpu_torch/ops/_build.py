@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_loaded: dict[tuple, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}
 
 
 def find_nvcc() -> str:
@@ -41,21 +41,18 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def build(name: str, defines: tuple[str, ...] = ()) -> Path:
+def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless a library of the same source and
-    flags exists; returns its path. ``defines`` (``"NAME=value"``) set a
-    source's tuning constants, for a tool that times candidates. The
-    compiler's register/spill report (``-Xptxas -v``) is kept beside the
-    library as ``.log``."""
+    flags exists; returns its path. The compiler's register/spill report
+    (``-Xptxas -v``) is kept beside it as ``.log``."""
     src = CSRC_DIR / f"{name}.cu"
-    flags = NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.is_file():
         return lib
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *flags, "-o", str(tmp), str(src)]
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src}:\n{proc.stderr}")
@@ -64,9 +61,8 @@ def build(name: str, defines: tuple[str, ...] = ()) -> Path:
     return lib
 
 
-def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    key = (name, tuple(defines))
-    if key not in _loaded:
-        _loaded[key] = ctypes.CDLL(str(build(name, key[1])))
-    return _loaded[key]
+    if name not in _loaded:
+        _loaded[name] = ctypes.CDLL(str(build(name)))
+    return _loaded[name]

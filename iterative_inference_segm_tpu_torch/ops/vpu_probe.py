@@ -16,9 +16,9 @@ PyTorch version (``*_reference``). No path falls back from the kernel to
 the plain version. ``fma_chain.launches`` and ``pattern_softmax.launches``
 count kernel launches. K4 reads and writes 16 bytes a thread (a scalar head
 and tail where the tensor does not start or end on a 16-byte boundary). K5
-takes 4 pixels a thread with vector loads and stores where every row starts
-on the vector's boundary (W a multiple of 4, an aligned tensor), and one
-pixel a thread otherwise.
+stages tiles of three rows (and the row below) through shared memory with
+16-byte copies and stores them 16 bytes at a time; three C x W rows of the
+dtype must fit a block's shared memory (``SHARED_BYTES``).
 """
 
 from __future__ import annotations
@@ -32,9 +32,7 @@ import torch
 from iterative_inference_segm_tpu_torch.ops import _build
 
 MAX_CLASSES = 16
-# Tuning constants ("NAME=value") the kernels are built with; empty for the
-# source's own. ``tools/probe_sweep.py`` sets it to time candidates.
-DEFINES: tuple[str, ...] = ()
+SHARED_BYTES = 227 * 1024  # a block's shared memory on the card (kPatSharedMost in the source)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _FMA_ARGTYPES = [_I, _P, _P, _L, _I] + [_F] * 8 + [_P]
@@ -97,7 +95,7 @@ def _device_kind(name: str, x: torch.Tensor) -> str:
 
 
 def _fn(entry: str, argtypes):
-    fn = getattr(_build.load("vpu_probe", DEFINES), entry)
+    fn = getattr(_build.load("vpu_probe"), entry)
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -150,6 +148,11 @@ def pattern_softmax(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     xc, kc = x.contiguous(), k.reshape(-1).contiguous()
     out = torch.empty_like(xc)
     n, r, _, wd = (int(s) for s in xc.shape)
+    if 3 * c * wd * xc.element_size() + 64 > SHARED_BYTES:
+        raise ValueError(
+            f"pattern_softmax: three {c} x {wd} rows of {x.dtype} (a tile of one row, the row below and "
+            f"the results) do not fit the {SHARED_BYTES} bytes of a block's shared memory"
+        )
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _fn("pattern_softmax_launch", _PATTERN_ARGTYPES)(

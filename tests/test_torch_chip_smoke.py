@@ -80,10 +80,11 @@ def test_kernel_edge_cases_reach_the_wide_instance():
 def test_probe_edge_cases_cover_the_vector_ends_and_the_scalar_instance():
     cases = chip_smoke.probe_edge_cases("cpu", torch.Generator().manual_seed(0))
     names = [c[0] for c in cases]
-    assert len(names) == len(set(names)) == 2 * (7 + 9)
+    assert len(names) == len(set(names)) == 2 * (7 + 10)
     for tag in ("float32", "bfloat16"):
         assert f"fma_chain {tag} n=1003 at element 3" in names
         assert f"pattern_softmax {tag} (2, 1, 11, 33) at element 0" in names
+        assert f"pattern_softmax {tag} (1, 4, 16, 1000) at element 0" in names  # one row a tile in f32
         assert any(n.startswith(f"pattern_softmax {tag} (2, 3, 11, 8) at element") and not n.endswith(" 0")
                    for n in names)
     for name, kernel, call, plain, f32_tol in cases:

@@ -36,8 +36,17 @@ SIGMA_TOL = 1e-6
 EXP_ULPS = 4 * 2.0**-23
 # At 128 classes the softmax's denominator has 128 terms: the port sums them
 # class by class, as its kernel does, XLA's CPU reduction over the 128 lanes
-# in another order (measured: 9.7 ulps apart at most; equal up to 33 classes)
+# in another order, so the outputs are up to 16 ulps apart. The test below
+# shows that this is the whole difference: the Pallas kernel's row is the
+# plain version's numerators over ONE denominator within DEN_SPAN ulps of
+# the exactly rounded sum (bit for bit for K1, whose numerators are exp(0)
+# and exp(-1); within the 4 ulps of the two exps for K2).
 WIDE_SUM_ULPS = 16 * 2.0**-23
+DEN_SPAN = 8
+# At sigma = 1 every class of every pixel, the rarest (8e-5) included, also
+# agrees relatively (1.05e-6 at most here): a draw from another counter would
+# move its class by a factor of order e.
+SIGMA_RTOL = 4e-6
 
 
 @pytest.fixture(scope="module")
@@ -99,30 +108,56 @@ def test_probs_plain_matches_pallas_kernel(jx, sigma):
         assert np.abs(got.numpy() - want).max() <= SIGMA_TOL
 
 
+def _over_one_denominator(e, want, rtol):
+    """Whether each row of ``want`` is ``e`` over one f32 denominator among
+    the 2 DEN_SPAN + 1 neighbours of the exactly rounded sum of ``e``'s row
+    (every class within ``rtol`` of it; 0 for bit-equal)."""
+    exact = e.astype(np.float64).sum(-1).astype(np.float32)
+    cands, lo, hi = [exact], exact, exact
+    for _ in range(DEN_SPAN):
+        lo, hi = np.nextafter(lo, np.float32(0)), np.nextafter(hi, np.float32(np.inf))
+        cands += [lo, hi]
+    q = e[:, None, :] / np.stack(cands, 1)[:, :, None]
+    return (np.abs(q - want[:, None, :]) <= rtol * want[:, None, :]).all(-1).any(-1)
+
+
 @pytest.mark.parametrize("n_classes", [33, 128])
 @pytest.mark.parametrize("which", ["onehot", "probs"])
 def test_plain_versions_match_pallas_kernels_above_32_classes(jx, which, n_classes):
     """Up to the Pallas kernels' own 128 classes (one lane a class) the
     counter pixel * 128 + class draws their bits: both within 1e-6 at sigma
-    = 1 with equal argmax; at sigma = 0 and 33 classes K1 bit-equal and K2
-    within 4 ulps, as at 11; at 128 classes both within 16 ulps, the order
-    of the denominator's sum."""
+    = 1 with equal argmax, and every class within 4e-6 of its value; at
+    sigma = 0 and 33 classes K1 bit-equal and K2 within 4 ulps, as at 11; at
+    128 classes both within 16 ulps, all of it the order of the
+    denominator's sum: the Pallas rows are the plain numerators over one
+    denominator near the exact sum."""
     key = jx.jax.random.PRNGKey(7)
     for sigma in (0.0, 1.0):
         if which == "onehot":
             lab = _labels(shape=(1, 20, 13), hi=n_classes + 2)
             want = np.asarray(jx.onehot(jx.jnp.asarray(lab), key, n_classes=n_classes, sigma=sigma))
             got = ck.corrupt_onehot(torch.from_numpy(lab), _seed(jx, key), n_classes=n_classes, sigma=sigma).numpy()
+            clean = (torch.from_numpy(lab).reshape(-1, 1) == torch.arange(n_classes)).float()
         else:
             p = _probs(shape=(1, 20, 13, n_classes))
             want = np.asarray(jx.probs(jx.jnp.asarray(p), key, sigma=sigma))
             got = ck.corrupt_probs(torch.from_numpy(p), _seed(jx, key), sigma=sigma).numpy()
+            clean = torch.from_numpy(p).reshape(-1, n_classes)
         assert got.shape == want.shape
         if sigma > 0.0:
             assert np.abs(got - want).max() <= SIGMA_TOL
             assert (got.argmax(-1) == want.argmax(-1)).mean() == 1.0
+            np.testing.assert_allclose(got, want, rtol=SIGMA_RTOL, atol=0)
         elif n_classes == 128:
             np.testing.assert_allclose(got, want, rtol=WIDE_SUM_ULPS, atol=0)
+            # the numerators as the plain version computes them
+            e = torch.exp(clean - clean.amax(dim=-1, keepdim=True)).numpy()
+            rows = want.reshape(-1, n_classes)
+            assert _over_one_denominator(e, rows, 0.0 if which == "onehot" else EXP_ULPS).all()
+            if which == "onehot":
+                # and the plain version's class-by-class sum is not that denominator: the
+                # two differ in the sum alone
+                assert not _over_one_denominator(e, got.reshape(-1, n_classes), 0.0).all()
         elif which == "onehot":
             np.testing.assert_array_equal(got, want)
         else:

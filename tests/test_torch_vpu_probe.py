@@ -276,8 +276,9 @@ def test_fma_kernel_vector_ends_on_card(cuda_device, dtype, length, offset):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_pattern_kernel_takes_a_view_off_the_vector_boundary(cuda_device, dtype):
-    """W = 8 fits the vector instance, but a view one element into its
-    buffer does not start on the vector's boundary: the scalar instance."""
+    """W = 8 fits the instance that takes 4 w a thread, but a view one
+    element into its buffer does not start on that boundary: its tiles are
+    staged with their head carried and computed one w a thread."""
     base = torch.randn(1 + 2 * 3 * 11 * 8, generator=torch.Generator().manual_seed(8)).to(dtype)
     x = base.to(cuda_device)[1:].view(2, 3, 11, 8)
     assert x.is_contiguous() and x.data_ptr() % 8 == x.element_size()
@@ -302,15 +303,17 @@ def test_plain_versions_take_views_as_their_contiguous_copies(dtype):
             assert torch.equal(pattern_softmax(view, k), pattern_softmax_reference(view.contiguous(), k))
 
 
-# K5's instances: W = 240, 700, 8 and 4 are multiples of the 4 elements a
-# thread takes, so rows start on the vector's boundary and the vector
-# instance runs (C = 11 exactly unrolled, C = 4 and 16 against a run-time
-# C); W = 7, 33 and 1 take the scalar instance; R = 1 has no row below.
+# K5's instances: W = 240, 700, 8 and 4 are multiples of the 4 w a thread
+# takes, so rows start on that boundary (C = 11 exactly unrolled, C = 4 and
+# 16 against a run-time C); W = 7, 33 and 1 are computed one w a thread from
+# tiles whose spans start off a 16-byte boundary; R = 1 has no row below,
+# R = 4, 5 and 36 end in tiles of 1, 2 and 3 rows; three rows of 16 x 1000
+# f32 do not fit a block's shared memory, so that tile holds one row.
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 36, 11, 240), (3, 5, 4, 7), (1, 1, 16, 33), (2, 1, 4, 7), (2, 1, 11, 33),
                                    (1, 1, 16, 240), (2, 3, 11, 7), (1, 5, 16, 33), (2, 3, 4, 240),
-                                   (1, 2, 11, 700), (3, 4, 11, 1), (2, 3, 16, 8), (1, 2, 5, 4)])
+                                   (1, 2, 11, 700), (3, 4, 11, 1), (2, 3, 16, 8), (1, 2, 5, 4), (1, 4, 16, 1000)])
 def test_pattern_kernel_matches_plain_version_on_card(cuda_device, dtype, shape):
     x = torch.randn(shape, generator=torch.Generator().manual_seed(5)).to(dtype)
     k = torch.linspace(0.5, 1.5, shape[2])
@@ -322,3 +325,16 @@ def test_pattern_kernel_matches_plain_version_on_card(cuda_device, dtype, shape)
     tol = 1e-6 if dtype == torch.float32 else 2.0**-8
     assert got.shape == x.shape and got.dtype == dtype
     assert (got.cpu().float() - want).abs().max() <= tol
+
+
+@pytest.mark.cuda
+def test_pattern_kernel_refuses_a_row_that_does_not_fit_shared_memory(cuda_device):
+    """A tile holds a C x W row, the row below and the results: 3 x 16 x
+    1300 f32 are over a block's 227 KB; the wrapper names the limit."""
+    x = torch.zeros((1, 2, 16, 1300), device=cuda_device)
+    before = pattern_softmax.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        pattern_softmax(x, torch.ones(16, device=cuda_device))
+    assert pattern_softmax.launches == before
+    pattern_softmax(x[..., :1000], torch.ones(16, device=cuda_device))
+    assert pattern_softmax.launches == before + 1
