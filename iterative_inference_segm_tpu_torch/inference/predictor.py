@@ -1,7 +1,9 @@
 """Serving-facing predictor: weights -> fixed-batch inference on one device.
 
 Port of ``iterative_inference_segm_tpu.inference.predictor``: FCN-8 + the
-DAE refinement through either engine. ``engine='general'`` (the default, as
+score network's refinement through either engine (``dae_arch`` 'dae',
+'mirror' or 'contextmod' on the general engine, 'dae' alone on the half
+engine, whose pooled iteration needs the DAE's stem). ``engine='general'`` (the default, as
 in the JAX package) runs K full-resolution steps of ``inference.iterative.
 refinement_scan`` on the FCN's f32 softmax and returns f32 probabilities;
 ``engine='half'`` runs the pooled-scale engine (``inference.fused.
@@ -31,6 +33,7 @@ from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
 from iterative_inference_segm_tpu_torch.models.registry import (
     expected_meta,
     init_score_template,
+    score_kwargs,
     score_logits_fn,
     validate_arch,
 )
@@ -67,6 +70,8 @@ class Predictor:
         if mesh is not None or pp_mesh is not None:
             raise NotImplementedError("mesh / pp_mesh serving is not ported yet (ROADMAP.md)")
         self._score_logits = score_logits_fn(dae_arch)  # validates the arch name
+        if engine == "half" and dae_arch != "dae":
+            raise ValueError("engine='half' serves dae_arch='dae' only")
         check_mode(mode)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1; got {batch_size}")
@@ -103,12 +108,14 @@ class Predictor:
         dae_widths: tuple[int, ...] | None = None,
         dae_encoder: str = "pool",
         dae_arch: str = "dae",
+        dae_tied: bool = False,
         h_taps: tuple[str, ...] = ("pool4",),
         **kwargs,
     ) -> "Predictor":
-        """Load flat-npz exports (JAX layout, from either package). The DAE's
-        shape-invisible flags (encoder, depth, stem_pool, tail, widths) are
-        checked against the checkpoint's stamped metadata first."""
+        """Load flat-npz exports (JAX layout, from either package). The score
+        network's shape-invisible flags (encoder, depth, stem_pool, tail,
+        widths, tied) are checked against the checkpoint's stamped metadata
+        first."""
         validate_arch(dae_arch)
         gen = torch.Generator().manual_seed(0)
         fcn_t = init_fcn8(
@@ -120,18 +127,18 @@ class Predictor:
         if dae_npz:
             expect = expected_meta(
                 dae_arch, depth=dae_depth, stem_pool=dae_stem_pool, tail=dae_tail,
-                widths=dae_widths, encoder=dae_encoder,
+                widths=dae_widths, encoder=dae_encoder, tied=dae_tied,
             )
             check_npz_meta(dae_npz, expect, context=f"Predictor.from_npz({dae_npz})")
             dae_t = init_score_template(
                 dae_arch, gen, n_classes=dataset.n_classes, h_taps=tuple(h_taps),
                 depth=dae_depth, stem_pool=dae_stem_pool, tail=dae_tail, widths=dae_widths,
-                device=device,
+                tied=dae_tied, device=device,
             )
             dae = load_npz(dae_npz, dae_t)
         return cls(
             fcn, dae, device=device, dataset=dataset, h_taps=h_taps, dae_arch=dae_arch,
-            dae_kwargs={"depth": dae_depth, "encoder": dae_encoder}, **kwargs,
+            dae_kwargs=score_kwargs(dae_arch, depth=dae_depth, encoder=dae_encoder), **kwargs,
         )
 
     def _predict(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

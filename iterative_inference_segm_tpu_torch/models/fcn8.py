@@ -9,7 +9,7 @@ skip fusions exactly as in the JAX package.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
 import torch
 
@@ -30,6 +30,10 @@ _VGG = [
     ("conv4_1", 3, 512), ("conv4_2", 3, 512), ("conv4_3", 3, 512), "P",
     ("conv5_1", 3, 512), ("conv5_2", 3, 512), ("conv5_3", 3, 512), "P",
 ]
+
+# dropout after fc6/fc7: a generator that draws the two keep-masks, or the
+# masks (fc6's, fc7's)
+Dropout = Union[torch.Generator, tuple[torch.Tensor, torch.Tensor]]
 
 FCN8_FEATURES = ("input", "pool1", "pool2", "pool3", "pool4", "pool5", "fc7", "score", "probs")
 
@@ -78,21 +82,22 @@ def fcn8_apply(
     x: torch.Tensor,
     *,
     return_features: Sequence[str] = (),
-    generator: torch.Generator | None = None,
+    dropout: Dropout | None = None,
     dropout_rate: float = 0.5,
     compute_dtype=torch.float32,
     probs_dtype=torch.float32,
 ) -> tuple[torch.Tensor, dict]:
     """FCN-8 forward. ``x``: (B, H, W, in_channels) NHWC. Returns
     ``(probs, features)``: probs (B, H, W, C) at ``probs_dtype``, features
-    the requested taps. Dropout after fc6/fc7 runs only when a
-    ``generator`` is passed (training)."""
+    the requested taps. Dropout after fc6/fc7 runs only when ``dropout`` is
+    given (training): a generator that draws both keep-masks, or the two
+    masks themselves (``dropout_masks``)."""
     pools, feats = fcn8_backbone(
         params, x, return_features=return_features, compute_dtype=compute_dtype
     )
     probs, head_feats = fcn8_head(
         params, pools, (int(x.shape[1]), int(x.shape[2])),
-        return_features=return_features, generator=generator,
+        return_features=return_features, dropout=dropout,
         dropout_rate=dropout_rate, probs_dtype=probs_dtype,
     )
     feats.update(head_feats)
@@ -129,9 +134,27 @@ def fcn8_backbone(
     return {k: pools[k] for k in ("pool3", "pool4", "pool5")}, feats
 
 
-def _dropout(h: torch.Tensor, rate: float, generator: torch.Generator) -> torch.Tensor:
+def fc_shape(x_shape: Sequence[int], fc_channels: int) -> tuple[int, int, int, int]:
+    """Shape of the fc6/fc7 maps (the dropout masks) for an NHWC input:
+    five ceil-mode pools take H, W to ceil(H / 32), ceil(W / 32)."""
+    b, h, w = (int(s) for s in x_shape[:3])
+    return b, -(-h // 32), -(-w // 32), fc_channels
+
+
+def dropout_masks(
+    generator: torch.Generator, shape: Sequence[int], *, dropout_rate: float = 0.5
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The keep-masks after fc6 and fc7 (bool, ``shape``), drawn on the
+    generator's device: keep with probability ``1 - dropout_rate``."""
+    keep = 1.0 - dropout_rate
+    return tuple(
+        torch.rand(tuple(shape), generator=generator, device=generator.device) < keep for _ in range(2)
+    )
+
+
+def _dropout(h: torch.Tensor, rate: float, mask: torch.Tensor) -> torch.Tensor:
+    """``h * mask / keep`` (the JAX package's inverted dropout)."""
     keep = 1.0 - rate
-    mask = torch.rand(h.shape, generator=generator, device=generator.device) < keep
     return h * mask.to(device=h.device, dtype=h.dtype) / keep
 
 
@@ -141,24 +164,26 @@ def fcn8_head(
     in_hw: tuple[int, int],
     *,
     return_features: Sequence[str] = (),
-    generator: torch.Generator | None = None,
+    dropout: Dropout | None = None,
     dropout_rate: float = 0.5,
     probs_dtype=torch.float32,
 ) -> tuple[torch.Tensor, dict]:
     """fc6..softmax + skip-fusion decoder from the backbone's pool maps; the
-    compute dtype follows the pool maps'."""
+    compute dtype follows the pool maps'. ``dropout`` as in ``fcn8_apply``."""
     feats: dict = {}
     want = set(return_features)
     pool3, pool4, h = pools["pool3"], pools["pool4"], pools["pool5"]
 
     p = params["fc6"]
     h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
-    if generator is not None:
-        h = _dropout(h, dropout_rate, generator)
+    if isinstance(dropout, torch.Generator):
+        dropout = dropout_masks(dropout, h.shape, dropout_rate=dropout_rate)
+    if dropout is not None:
+        h = _dropout(h, dropout_rate, dropout[0])
     p = params["fc7"]
     h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
-    if generator is not None:
-        h = _dropout(h, dropout_rate, generator)
+    if dropout is not None:
+        h = _dropout(h, dropout_rate, dropout[1])
     if "fc7" in want:
         feats["fc7"] = h
 
@@ -189,3 +214,20 @@ def fcn8_head(
     if "probs" in want:
         feats["probs"] = probs
     return probs, feats
+
+
+def fcn8_logits(
+    params: dict,
+    x: torch.Tensor,
+    *,
+    dropout: Dropout | None = None,
+    dropout_rate: float = 0.5,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Pre-softmax scores (B, H, W, C) in f32 at input resolution (the
+    training loss wants logits); ``dropout`` as in ``fcn8_apply``."""
+    _, feats = fcn8_apply(
+        params, x, return_features=("score",), dropout=dropout, dropout_rate=dropout_rate,
+        compute_dtype=compute_dtype,
+    )
+    return feats["score"]

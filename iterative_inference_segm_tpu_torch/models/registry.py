@@ -1,10 +1,11 @@
 """Score-network architecture registry: one dispatch table for the zoo.
 
-Port of ``iterative_inference_segm_tpu.models.registry`` for ``arch="dae"``:
-the normalized apply, the per-step kwargs, the param template (the load
-target of checkpoints), the metadata the trainer stamps into
-``best_dae.npz`` and what a loader expects of it. The other two
-architectures are not ported yet.
+Port of ``iterative_inference_segm_tpu.models.registry`` for the three score
+networks, ``dae``, ``mirror`` and ``contextmod``: the normalized apply and
+the apply up to the logits (what the refinement engines call, since the
+tail kernel takes the softmax), the per-step kwargs, the param template
+(the load target of checkpoints), the metadata the trainer stamps into
+``best_dae.npz`` and what a loader expects of it.
 """
 
 from __future__ import annotations
@@ -17,24 +18,41 @@ SCORE_ARCHS = ("dae", "mirror", "contextmod")
 def validate_arch(arch: str) -> None:
     if arch not in SCORE_ARCHS:
         raise ValueError(f"unknown score-network arch {arch!r}; expected one of {SCORE_ARCHS}")
-    if arch != "dae":
-        raise NotImplementedError(
-            f"arch={arch!r} is not ported yet (ROADMAP.md, Queue 1 item 6)"
-        )
+
+
+def _contextmod_only_dtype(fn):
+    """The context module takes ``compute_dtype`` alone: forward it and drop
+    the rest (dropping it too would run the network in f32 under bf16)."""
+    return lambda p, y, h, **kw: fn(p, y, h, compute_dtype=kw.get("compute_dtype", torch.float32))
 
 
 def score_apply_fn(arch: str):
-    """Normalized ``(params, y, h, **kw)`` apply."""
+    """Normalized ``(params, y, h, **kw)`` apply: the denoised probabilities."""
     validate_arch(arch)
+    if arch == "mirror":
+        from iterative_inference_segm_tpu_torch.models.dae_mirror import mirror_dae_apply
+
+        return mirror_dae_apply
+    if arch == "contextmod":
+        from iterative_inference_segm_tpu_torch.models.contextmod import contextmod_apply
+
+        return _contextmod_only_dtype(contextmod_apply)
     from iterative_inference_segm_tpu_torch.models.dae import dae_apply
 
     return dae_apply
 
 
 def score_logits_fn(arch: str):
-    """Normalized ``(params, y, h, **kw)`` apply up to the logits: what the
-    refinement engines call, since the tail kernel takes the softmax."""
+    """Normalized ``(params, y, h, **kw)`` apply up to the logits."""
     validate_arch(arch)
+    if arch == "mirror":
+        from iterative_inference_segm_tpu_torch.models.dae_mirror import mirror_dae_logits
+
+        return mirror_dae_logits
+    if arch == "contextmod":
+        from iterative_inference_segm_tpu_torch.models.contextmod import contextmod_logits
+
+        return _contextmod_only_dtype(contextmod_logits)
     from iterative_inference_segm_tpu_torch.models.dae import dae_logits
 
     return dae_logits
@@ -43,6 +61,10 @@ def score_logits_fn(arch: str):
 def score_kwargs(arch: str, *, depth: int, encoder: str = "pool") -> dict:
     """Per-step apply kwargs (the refinement machinery's ``dae_kwargs``)."""
     validate_arch(arch)
+    if arch == "mirror":
+        return {"depth": depth}
+    if arch == "contextmod":
+        return {}
     return {"depth": depth, "encoder": encoder}
 
 
@@ -60,18 +82,32 @@ def init_score_template(
     dtype=torch.float32,
     device: torch.device | str = "cpu",
 ) -> dict:
-    """Random params of the arch (the load target for checkpoints)."""
+    """Random params of the arch (the load target for checkpoints). The
+    context module conditions at input scale only, so any other tap is
+    refused here with its name (no taps: unconditioned)."""
     validate_arch(arch)
-    if tied:
-        raise ValueError("tied=True applies to arch='mirror' only")
     from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, init_dae
 
+    kw = {"dtype": dtype, "device": device}
+    if arch == "contextmod":
+        from iterative_inference_segm_tpu_torch.models.contextmod import init_contextmod
+
+        bad = [t for t in h_taps if t != "input"]
+        if bad:
+            raise ValueError(f"contextmod conditions at input scale only; got taps {bad}")
+        h_ch = DAE_H_CHANNELS["input"] if "input" in h_taps else 0
+        return init_contextmod(generator, n_classes=n_classes, h_channels=h_ch, **kw)
+    h_specs = {name: DAE_H_CHANNELS[name] for name in h_taps}
     extra = {"widths": tuple(widths)} if widths else {}
-    return init_dae(
-        generator, n_classes=n_classes,
-        h_specs={name: DAE_H_CHANNELS[name] for name in h_taps}, depth=depth,
-        stem_pool=stem_pool, tail=tail, dtype=dtype, device=device, **extra,
-    )
+    if arch == "mirror":
+        from iterative_inference_segm_tpu_torch.models.dae_mirror import init_mirror_dae
+
+        return init_mirror_dae(generator, n_classes=n_classes, h_specs=h_specs, depth=depth, tied=tied,
+                               **extra, **kw)
+    if tied:
+        raise ValueError("tied=True applies to arch='mirror' only")
+    return init_dae(generator, n_classes=n_classes, h_specs=h_specs, depth=depth, stem_pool=stem_pool,
+                    tail=tail, **extra, **kw)
 
 
 def expected_meta(
@@ -82,12 +118,17 @@ def expected_meta(
     tail: str = "full",
     widths: tuple[int, ...] | None = None,
     encoder: str = "pool",
+    tied: bool = False,
 ) -> dict:
     """Load-side ``check_npz_meta`` expectation: the shape-invisible knobs
     that would otherwise load silently under the wrong flag. ``widths`` is
     checked only when the caller declares it."""
     validate_arch(arch)
+    if arch == "contextmod":
+        return {"arch": "contextmod"}
     w = {"widths": tuple(widths)} if widths else {}
+    if arch == "mirror":
+        return {"arch": "mirror", "depth": depth, "tied": tied, **w}
     return {
         "arch": arch, "encoder": encoder, "depth": depth,
         "stem_pool": stem_pool, "tail": tail, **w,
@@ -106,11 +147,15 @@ def checkpoint_meta(
     tied: bool = False,
 ) -> dict:
     """What the trainer stamps into ``best_dae.npz``; always records the
-    resolved widths so a later load can verify them."""
+    resolved widths (of the DAEs) so a later load can verify them."""
     validate_arch(arch)
+    if arch == "contextmod":
+        return {"arch": arch, "h": tuple(h_taps)}
     from iterative_inference_segm_tpu_torch.models.dae import DEFAULT_WIDTHS
 
     resolved = tuple(widths) if widths else DEFAULT_WIDTHS[:depth]
+    if arch == "mirror":
+        return {"arch": arch, "depth": depth, "tied": tied, "widths": resolved, "h": tuple(h_taps)}
     return {
         "arch": arch, "encoder": encoder, "depth": depth,
         "stem_pool": stem_pool, "tail": tail,

@@ -188,6 +188,31 @@ def max_pool(
     return _nhwc(F.max_pool2d(_nchw(x), window, stride, ceil_mode=ceil_mode))
 
 
+def upsample_pool_indices(x: torch.Tensor, *, factor: int = 2) -> torch.Tensor:
+    """Nearest-neighbour unpooling: each pixel repeated ``factor`` times
+    along H and W."""
+    return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
+
+
+def max_unpool(g: torch.Tensor, pre: torch.Tensor, *, window: int = 2, stride: int = 2) -> torch.Tensor:
+    """Switch-based max-unpooling: ``g`` (the pooled shape) scattered to the
+    position of each window's maximum in ``pre``, zeros elsewhere; the
+    adjoint of the ceil-mode ``max_pool`` at ``pre``, as the JAX package's
+    (its VJP, XLA's ``select_and_scatter``).
+
+    The switches are those of ``max_pool(pre)``: a window's first maximum in
+    row-major order, as XLA keeps the first (all-zero windows after a ReLU
+    and bf16 ties are common); a ceil-mode window cut by the border looks at
+    its valid pixels only. ``pre`` enters as a constant (detached), and the
+    output is linear in ``g``, at ``g``'s dtype."""
+    pre = pre.detach()
+    _, idx = F.max_pool2d(_nchw(pre), window, stride, ceil_mode=True, return_indices=True)
+    # indices count within each (H, W) plane whatever the memory format
+    out = F.max_unpool2d(_nchw(g.to(pre.dtype)).contiguous(), idx.contiguous(), window, stride,
+                         output_size=tuple(pre.shape[1:3]))
+    return _nhwc(out).contiguous().to(g.dtype)
+
+
 def avg_pool(x: torch.Tensor, *, window: int = 2, stride: int = 2) -> torch.Tensor:
     """Average pooling (VALID)."""
     return _nhwc(F.avg_pool2d(_nchw(x), window, stride))

@@ -30,9 +30,8 @@ _NOT_PORTED = {
     "pp": "--pp (pipeline-parallel serving) is not ported yet (ROADMAP.md, Queue 1 item 12)",
     "pp_stages": "--pp-stages is not ported yet (ROADMAP.md, Queue 1 item 12)",
     "pp_microbatches": "--pp-microbatches is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "arch": "--arch mirror|contextmod is not ported yet (ROADMAP.md, Queue 1 item 6)",
-    "dae_tied": "--dae-tied (mirror arch) is not ported yet (ROADMAP.md, Queue 1 item 6)",
-    "dae_mirror_npz": "--dae-mirror-npz is not ported yet (ROADMAP.md, Queue 1 item 6)",
+    "dae_mirror_npz": "--dae-mirror-npz (utils/import_weights.import_mirror_dae_npz) is not "
+                      "ported yet (ROADMAP.md, Queue 1 item 10)",
     "fcn_reference_npz": "--fcn-reference-npz (utils/import_weights) is not ported yet "
                          "(ROADMAP.md, Queue 1 item 10)",
     "fcn_flip_deconvs": "--fcn-flip-deconvs (utils/import_weights) is not ported yet "
@@ -66,8 +65,9 @@ def parse_args(argv=None):
                    help="encoder widths; must match the trained DAE npz")
     p.add_argument("--dae-encoder", choices=["pool", "stride"], default="pool",
                    help="encoder style; must match the trained DAE npz")
-    p.add_argument("--arch", default="dae", choices=["dae", "mirror", "contextmod"])
-    p.add_argument("--dae-tied", action="store_true")
+    p.add_argument("--arch", default="dae", choices=["dae", "mirror", "contextmod"],
+                   help="score network: the DAE, the mirror DAE, or the dilated context module")
+    p.add_argument("--dae-tied", action="store_true", help="mirror arch: expect a weight-tied checkpoint")
     p.add_argument("--dae-mirror-npz", default=None)
     p.add_argument("--epsilon", type=float, default=0.1)
     p.add_argument("--num-steps", type=int, default=5)
@@ -144,12 +144,12 @@ def main(argv=None) -> int:
     dae_params = init_score_template(
         args.arch, torch.Generator().manual_seed(args.seed + 1), n_classes=cfg.n_classes,
         h_taps=tuple(args.concat_h), depth=args.dae_depth, stem_pool=args.dae_stem_pool,
-        tail=args.dae_tail, widths=widths, device=device,
+        tail=args.dae_tail, widths=widths, tied=args.dae_tied, device=device,
     )
     if args.dae_npz:
         expect = expected_meta(
             args.arch, depth=args.dae_depth, stem_pool=args.dae_stem_pool, tail=args.dae_tail,
-            widths=widths, encoder=args.dae_encoder,
+            widths=widths, encoder=args.dae_encoder, tied=args.dae_tied,
         )
         check_npz_meta(args.dae_npz, expect, context=f"--dae-npz {args.dae_npz}")
         dae_params = load_npz(args.dae_npz, dae_params)

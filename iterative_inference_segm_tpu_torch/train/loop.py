@@ -1,4 +1,6 @@
-"""Shared training scaffold: configuration, optimizer, early stopping.
+"""Shared training scaffold: configuration, optimizer, early stopping, and
+what both trainers do around their steps (batches to the device, resuming
+from a workdir).
 
 Port of ``iterative_inference_segm_tpu.train.loop``. The JAX optimizer is
 ``optax.chain(add_decayed_weights(wd, mask=w-leaves), adam(lr))``: the L2
@@ -12,9 +14,14 @@ optax's (betas 0.9/0.999, eps 1e-8 added to the bias-corrected sqrt(v)).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
+
+from iterative_inference_segm_tpu_torch.utils.checkpoint import latest_step, load_npz, restore_checkpoint
+from iterative_inference_segm_tpu_torch.utils.experiment import MetricLogger
 
 
 @dataclass
@@ -26,8 +33,8 @@ class TrainConfig:
     batch_size: int = 10
     seed: int = 0
     compute_dtype: Any = torch.float32
-    # recompute the DAE forward during backprop (torch.utils.checkpoint):
-    # trades FLOPs for activation memory
+    # recompute the trained network's forward during backprop
+    # (torch.utils.checkpoint): trades FLOPs for activation memory
     remat: bool = False
 
 
@@ -71,3 +78,56 @@ class EarlyStopper:
     @property
     def should_stop(self) -> bool:
         return self.bad_epochs > self.patience
+
+
+def device_of(params: dict) -> torch.device:
+    return next(iter(next(iter(params.values())).values())).device
+
+
+def clone_params(params: dict) -> dict:
+    return {k: {kk: t.detach().clone() for kk, t in v.items()} for k, v in params.items()}
+
+
+def batches(src):
+    """A fresh iterator over ``src``: a callable returning one, or an iterable."""
+    return src() if callable(src) else iter(src)
+
+
+def to_device(images, labels, device) -> tuple[torch.Tensor, torch.Tensor]:
+    x = torch.as_tensor(np.asarray(images)).to(device)
+    y = torch.as_tensor(np.asarray(labels)).to(device)
+    return x, y
+
+
+def resume_training(
+    workdir: str,
+    params: dict,
+    optimizer: torch.optim.Optimizer,
+    generator: torch.Generator,
+    logger: MetricLogger,
+    stopper: EarlyStopper,
+    best_npz: str,
+) -> tuple[list[dict], int, dict]:
+    """Restore a trainer from ``workdir/ckpt``'s latest epoch: the params (in
+    place), the optimizer state, the generator, the history up to that epoch
+    (replayed into ``stopper``) and the best params from ``workdir/best_npz``,
+    which may predate the latest checkpoint. Returns ``(history,
+    start_epoch, best_params)``; a workdir without a checkpoint gives
+    ``([], 0, a copy of params)``."""
+    ckpt_dir = Path(workdir) / "ckpt"
+    step = latest_step(ckpt_dir)
+    if step is None:
+        return [], 0, clone_params(params)
+    state = restore_checkpoint(ckpt_dir, step)
+    with torch.no_grad():
+        for layer, leaves in params.items():
+            for k, t in leaves.items():
+                t.copy_(state["params"][layer][k])
+    optimizer.load_state_dict(state["opt_state"])
+    generator.set_state(state["rng"])
+    history = [h for h in logger.read() if h["step"] <= step]
+    for h in history:
+        stopper.update(h["step"], h.get("val_miou", -float("inf")))
+    best = Path(workdir) / best_npz
+    best_params = load_npz(best, params) if best.exists() else clone_params(params)
+    return history, step + 1, best_params

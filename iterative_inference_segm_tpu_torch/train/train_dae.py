@@ -29,7 +29,6 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterable
 
-import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -50,11 +49,17 @@ from iterative_inference_segm_tpu_torch.ops import corruption as oracle
 from iterative_inference_segm_tpu_torch.ops import corruption_kernel as kernels
 from iterative_inference_segm_tpu_torch.ops.losses import crossentropy_probs
 from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
-from iterative_inference_segm_tpu_torch.train.loop import EarlyStopper, TrainConfig, make_optimizer
+from iterative_inference_segm_tpu_torch.train.loop import (
+    EarlyStopper,
+    TrainConfig,
+    batches,
+    clone_params,
+    device_of,
+    make_optimizer,
+    resume_training,
+    to_device,
+)
 from iterative_inference_segm_tpu_torch.utils.checkpoint import (
-    latest_step,
-    load_npz,
-    restore_checkpoint,
     save_checkpoint,
     save_npz,
     wait_for_checkpoints,
@@ -87,14 +92,6 @@ def draw_step_randomness(
     offsets = draw_crop_and_flip(generator, batch, hw, crop) if crop is not None else None
     take_gt = bool(torch.rand((), generator=generator) < p_gt)
     return StepRandomness(noise_seed=seed, crop=offsets, take_gt=take_gt)
-
-
-def _device_of(params: dict) -> torch.device:
-    return next(iter(next(iter(params.values())).values())).device
-
-
-def _clone(params: dict) -> dict:
-    return {k: {kk: t.detach().clone() for kk, t in v.items()} for k, v in params.items()}
 
 
 def make_dae_train_step(
@@ -233,16 +230,6 @@ def make_dae_train_step(
     return train_step, eval_step
 
 
-def _batches(src):
-    return src() if callable(src) else iter(src)
-
-
-def _on_device(images, labels, device):
-    x = torch.as_tensor(np.asarray(images)).to(device)
-    y = torch.as_tensor(np.asarray(labels)).to(device)
-    return x, y
-
-
 def train_dae(
     *,
     fcn_params: dict,
@@ -280,7 +267,7 @@ def train_dae(
         raise NotImplementedError("mesh (data-parallel) training is not ported yet "
                                   "(ROADMAP.md, Queue 1 item 12)")
     tcfg = tcfg or TrainConfig()
-    device = _device_of(fcn_params)
+    device = device_of(fcn_params)
     gen = torch.Generator().manual_seed(tcfg.seed)
     if dae_params is None:
         dae_params = init_score_template(
@@ -302,35 +289,19 @@ def train_dae(
 
     logger = MetricLogger(workdir) if workdir else None
     stopper = EarlyStopper(tcfg.patience)
-    best_params = _clone(dae_params)
+    best_params = clone_params(dae_params)
     history: list[dict] = []
     start_epoch = 0
-
     if workdir and resume:
-        ckpt_dir = Path(workdir) / "ckpt"
-        step = latest_step(ckpt_dir)
-        if step is not None:
-            state = restore_checkpoint(ckpt_dir, step)
-            with torch.no_grad():
-                for layer, leaves in dae_params.items():
-                    for k, t in leaves.items():
-                        t.copy_(state["params"][layer][k])
-            optimizer.load_state_dict(state["opt_state"])
-            gen.set_state(state["rng"])
-            history = [h for h in logger.read() if h["step"] <= step]
-            for h in history:
-                stopper.update(h["step"], h.get("val_miou", -float("inf")))
-            start_epoch = step + 1
-            # the best params may predate the latest checkpoint
-            best_npz = Path(workdir) / "best_dae.npz"
-            best_params = load_npz(best_npz, dae_params) if best_npz.exists() else _clone(dae_params)
+        history, start_epoch, best_params = resume_training(
+            workdir, dae_params, optimizer, gen, logger, stopper, "best_dae.npz")
 
     for epoch in range(start_epoch, tcfg.max_epochs):
         t_epoch = time.perf_counter()
         losses = []
         n_images = 0
-        for images, labels in _batches(train_data):
-            x, y = _on_device(images, labels, device)
+        for images, labels in batches(train_data):
+            x, y = to_device(images, labels, device)
             rand = draw_step_randomness(
                 gen, batch=int(y.shape[0]), hw=(int(y.shape[1]), int(y.shape[2])),
                 crop=dataset.train_crop if augment else None, p_gt=p_gt,
@@ -345,8 +316,8 @@ def train_dae(
         eval_gen = torch.Generator().manual_seed(int(torch.randint(0, 2**62, (1,), generator=gen)))
         cm_total = None
         val_losses = []
-        for images, labels in _batches(val_data):
-            x, y = _on_device(images, labels, device)
+        for images, labels in batches(val_data):
+            x, y = to_device(images, labels, device)
             rand = draw_step_randomness(eval_gen, batch=int(y.shape[0]), hw=(0, 0), crop=None,
                                         p_gt=p_gt)
             cm, vloss = eval_step(dae_params, fcn_params, x, y, rand)
@@ -366,13 +337,13 @@ def train_dae(
             epoch_callback(epoch, history[-1], dae_params)
 
         if stopper.update(epoch, val_miou):
-            best_params = _clone(dae_params)
+            best_params = clone_params(dae_params)
             if workdir:
                 save_npz(Path(workdir) / "best_dae.npz", best_params, meta=ckpt_meta)
         if workdir and checkpoint_every and epoch % checkpoint_every == 0:
             save_checkpoint(
                 Path(workdir) / "ckpt", epoch,
-                {"params": _clone(dae_params), "opt_state": optimizer.state_dict(),
+                {"params": clone_params(dae_params), "opt_state": optimizer.state_dict(),
                  "rng": gen.get_state()},
             )
         if stopper.should_stop:

@@ -96,3 +96,21 @@ def test_probe_edge_cases_cover_the_vector_ends_and_the_scalar_instance():
 
 def test_pattern_ops_count_the_exponential_and_the_divide():
     assert chip_smoke.PATTERN_OPS == 36
+
+
+def test_unpool_tie_cases_pick_the_jax_positions_on_the_cpu():
+    """Phase 17 holds max_unpool on the card to the CPU on these cases; here
+    the CPU is held to the JAX package on them (bit for bit)."""
+    import jax.numpy as jnp
+    import numpy as np
+
+    from iterative_inference_segm_tpu.ops.conv import max_unpool as j_max_unpool
+
+    cases = chip_smoke.unpool_tie_cases(torch.Generator().manual_seed(31))
+    assert [c[0] for c in cases] == [f"{n} {d}" for n in ("stage1_zero_windows", "exact_ties", "ragged_odd", "all_equal")
+                                     for d in ("float32", "bfloat16")]
+    for name, pre, g in cases:
+        jd = jnp.bfloat16 if pre.dtype == torch.bfloat16 else jnp.float32
+        got = chip_smoke.max_unpool(g, pre)
+        want = j_max_unpool(jnp.asarray(g.float().numpy(), jd), jnp.asarray(pre.float().numpy(), jd))
+        np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)), err_msg=name)

@@ -220,7 +220,7 @@ def test_predictor_from_npz(tmp_path):
 @pytest.mark.parametrize(
     "kw,exc",
     [({"engine": "general", "mesh": object()}, NotImplementedError), ({"engine": "fused"}, ValueError),
-     ({"dae_arch": "mirror"}, NotImplementedError), ({"dae_arch": "unet"}, ValueError),
+     ({"dae_arch": "mirror", "engine": "half"}, ValueError), ({"dae_arch": "unet"}, ValueError),
      ({"mesh": object()}, NotImplementedError), ({"pp_mesh": object()}, NotImplementedError),
      ({"batch_size": 0}, ValueError)],
 )

@@ -120,8 +120,8 @@ def test_fcn8_dropout_only_with_generator(fcn):
     a, _ = tfcn8.fcn8_apply(tp, x)
     b, _ = tfcn8.fcn8_apply(tp, x)
     assert torch.equal(a, b)
-    c, _ = tfcn8.fcn8_apply(tp, x, generator=torch.Generator().manual_seed(0))
-    d, _ = tfcn8.fcn8_apply(tp, x, generator=torch.Generator().manual_seed(0))
+    c, _ = tfcn8.fcn8_apply(tp, x, dropout=torch.Generator().manual_seed(0))
+    d, _ = tfcn8.fcn8_apply(tp, x, dropout=torch.Generator().manual_seed(0))
     assert torch.equal(c, d) and not torch.allclose(a, c)
 
 

@@ -203,10 +203,15 @@ def test_registry_checkpoint_meta_matches_jax(widths):
     assert int(p["enc1"]["w"].shape[0]) == (widths or (32,))[0]
 
 
-@pytest.mark.parametrize("arch,err", [("mirror", NotImplementedError),
-                                      ("contextmod", NotImplementedError),
-                                      ("unet", ValueError)])
+@pytest.mark.parametrize("arch,err", [("mirror", None), ("contextmod", None), ("unet", ValueError)])
 def test_registry_rejects_unported_archs(arch, err):
+    """Only an unknown arch is refused now; mirror and contextmod, refused
+    until they were ported, dispatch as in the JAX registry."""
+    if err is None:
+        assert callable(treg.score_apply_fn(arch)) and callable(treg.score_logits_fn(arch))
+        kw = dict(h_taps=(), depth=3, tied=arch == "mirror")
+        assert treg.checkpoint_meta(arch, **kw) == jreg.checkpoint_meta(arch, **kw)
+        return
     with pytest.raises(err):
         treg.score_apply_fn(arch)
     with pytest.raises(err):
@@ -251,11 +256,18 @@ def test_cli_trains_and_its_best_npz_loads_in_both_packages(tmp_path):
     assert labels.min() >= 0 and labels.max() < 11
 
 
+PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tail", "sep"], ["--dae-tied"])
+
+
 @pytest.mark.parametrize("flags", [
     ["--packed", "x"], ["--wire", "u8"], ["--data-root", "x"], ["--devices", "2"],
     ["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tail", "sep"], ["--dae-tied"],
 ])
 def test_cli_rejects_unported_flags_naming_the_roadmap(flags, capsys):
+    if flags in PORTED_FLAGS:  # refused until the score networks and the 'sep' tail step were ported
+        args = cli.parse_args(flags)
+        assert vars(args)[flags[0][2:].replace("-", "_")] == (flags[1] if len(flags) > 1 else True)
+        return
     with pytest.raises(SystemExit) as e:
         cli.parse_args(flags)
     assert e.value.code == 2
