@@ -7,7 +7,9 @@ the three corruption regimes, serves the DAE it trained, runs the K4/K5
 throughput probes, serves through the general engine in score and energy
 modes (and the 'sep'-tail flagship), runs the (eps, K) searches and the
 ``iterative_inference`` CLI, trains FCN-8 at full width, runs the synthetic
-accuracy demo, and serves the mirror DAE and the context module.
+accuracy demo, serves the mirror DAE and the context module, drives the
+data path (packed files on both wires, device prefetch, an EM dataset of two
+classes) and the weight import and profiling utilities.
 
 Run from the repository root with no arguments:
 
@@ -16,7 +18,8 @@ Run from the repository root with no arguments:
 Phases:
  1. device   -- a CUDA card is required (there is no CPU fallback)
  2. build    -- nvcc builds csrc/refine_tail.cu, csrc/corruption.cu and
-                csrc/vpu_probe.cu for sm_90a, all at once
+                csrc/vpu_probe.cu for sm_90a, and g++ the native input
+                runtime (native/input_runtime.cc), all at once
  3. kernel   -- the layouts (shapes, strides, dtypes) the engines hand
                 refine_tail at its three call sites (half-engine step,
                 rectification, general-engine step), all row-packed; the
@@ -96,7 +99,32 @@ Phases:
                 12); general-engine images/s at batch 4, bf16; max_unpool
                 card vs CPU bit for bit on tie cases; engine="half" refusing
                 both archs
-Phases 4, 10, 12, 13, 16 and 17 also assert that no refine_tail launch of
+18. data     -- a synthetic CamVid (128 train, 16 val, 16 test at 360x480)
+                packed by the pack_dataset twin; the val batch on the u8 wire
+                normalized on the card against the f32 wire normalized by the
+                native runtime (1e-6, labels equal); per wire, the runtime's
+                ms a batch and the host->device copy's (pageable to_device
+                against device_prefetch's pinned side stream), medians of 24
+                batches of 32; one epoch of the train_dae twin per wire with
+                --packed (bf16, batch 32; images/s, then under torch.profiler
+                the device's idle share); the iterative_inference twin
+                serving the test split on each wire (mIoU within 2e-4); one
+                epoch through iterate_split and epoch_reshuffled over the
+                frames in memory (the --data-root path, Pillow's decode aside)
+19. em       -- a synthetic EM stack (512x512x1, C = 2, 24/3/3) packed; the
+                train_dae twin --dataset em --packed --wire u8 in the gt and
+                natural regimes (K1/K2 launches one a batch); the
+                iterative_inference twin --search on the DAE it trained
+                (refine_tail launches = grid + test); K1/K2 at 32x256x256x2
+                bit-equal to their plain versions and K3 at the general step's
+                4x512x512x2 against refine_tail_reference, cold against their
+                bound
+20. utils    -- the full-width FCN written as a Lasagne positional npz with
+                the inverse converters, imported back bit for bit and served
+                with --fcn-reference-npz (the lines of --fcn-npz); one short
+                train_fcn8 twin epoch with --profile-dir, whose trace holds
+                CUDA kernel events
+Phases 4, 10, 12, 13, 16-20 also assert that no refine_tail launch of
 theirs took the kernel's strided staging. Every phase asserts; any failure raises
 and the exit code is non-zero. The line before the last is the kernel
 report (JSON: each kernel's launches on its path, error, times, bound and
@@ -121,8 +149,13 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID
+from iterative_inference_segm_tpu_torch.data.camvid import iterate_split
+from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID, DATASET_CONFIGS
+from iterative_inference_segm_tpu_torch.data.loaders import epoch_reshuffled
+from iterative_inference_segm_tpu_torch.data import native_loader
+from iterative_inference_segm_tpu_torch.data.native_loader import NativeDataset
 from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
+from iterative_inference_segm_tpu_torch.data.prefetch import device_prefetch
 from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
 from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn
 from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner, refinement_scan
@@ -139,10 +172,12 @@ from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, met
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail, refine_tail_reference
 from iterative_inference_segm_tpu_torch.scripts import demo_synthetic as demo
 from iterative_inference_segm_tpu_torch.scripts import iterative_inference as cli
+from iterative_inference_segm_tpu_torch.scripts import pack_dataset as pack_cli
+from iterative_inference_segm_tpu_torch.scripts import train_dae as dae_cli
 from iterative_inference_segm_tpu_torch.scripts import train_fcn8 as fcn_cli
 from iterative_inference_segm_tpu_torch.tools import seed_replication, tail_bench
 from iterative_inference_segm_tpu_torch.tools import vpu_probe as probe_tool
-from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer
+from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer, to_device
 from iterative_inference_segm_tpu_torch.train.train_dae import (
     draw_step_randomness,
     make_dae_train_step,
@@ -151,7 +186,10 @@ from iterative_inference_segm_tpu_torch.train.train_dae import (
 from iterative_inference_segm_tpu_torch.train.train_fcn8 import StepRandomness as FCNStepRandomness
 from iterative_inference_segm_tpu_torch.train.train_fcn8 import draw_step_randomness as draw_fcn_randomness
 from iterative_inference_segm_tpu_torch.train.train_fcn8 import make_fcn8_train_step, train_fcn8
+from iterative_inference_segm_tpu_torch.utils import profiling
 from iterative_inference_segm_tpu_torch.utils.checkpoint import latest_step, save_npz
+from iterative_inference_segm_tpu_torch.utils.import_weights import FCN8_LASAGNE_ORDER, import_lasagne_npz
+from iterative_inference_segm_tpu_torch.utils.jax_bridge import params_to_jax
 
 K_STEPS = 5
 EPS = 0.1
@@ -246,6 +284,25 @@ FCN_PARITY_MIN_GRAD = 1e-4
 # The demo's val and test splits (3 and 4 batches, scripts/demo_synthetic.py)
 DEMO_VAL_BATCHES = 3
 DEMO_TEST_BATCHES = 4
+
+# The data phase (18): a synthetic CamVid packed at full size (360x480),
+# read at the trainers' batch of 32; each timing is a median over this many
+# batches. The u8 wire normalized on the card against the f32 wire
+# normalized by the runtime: both compute (x/255 - mean)/std in f32, the
+# runtime with x * (1/255) and * (1/std), so they differ by an ulp or two of
+# values under 2.1 (2.4e-7 an ulp).
+DATA_SPLITS = {"train": 128, "val": 16, "test": 16}
+DATA_TIMED_BATCHES = 24
+WIRE_TOL = 1e-6
+# The two wires served through the CLI (f32, general engine, the same
+# frames) agree on every pixel but those whose argmax the ulps above flip
+WIRE_MIOU_TOL = 2e-4
+# The EM phase (19): the ISBI split (24/3/3) of synthetic 512x512 frames,
+# C = 2, trained for two epochs a regime at the batch of 32 (one padded
+# batch of train and one of val an epoch)
+EM_SPLITS = {"train": 24, "val": 3, "test": 3}
+EM_EPOCHS = 2
+EM = DATASET_CONFIGS["em"]
 
 # Operations an element, for the operations side of each bound. K1/K2:
 # counted once from the SASS of the fast paths on sm_90a (a multiply-add
@@ -364,6 +421,34 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def split_flags(splits: dict) -> list[str]:
+    """pack_dataset's --num-train/--num-val/--num-test for ``splits``."""
+    return [arg for split, n in splits.items() for arg in (f"--num-{split}", str(n))]
+
+
+def run_cli(main_fn, argv) -> tuple[list[str], float]:
+    """A CLI twin's ``main(argv)`` in this process: its printed lines and
+    its wall seconds (the device synchronized); a non-zero code raises."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn([str(a) for a in argv])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    if rc != 0:
+        raise AssertionError(f"{main_fn.__module__} {argv} returned {rc}: {lines[-5:]}")
+    return lines, secs
+
+
+def last_epoch(workdir) -> dict:
+    """The last line of a trainer's ``metrics.jsonl``."""
+    rows = [json.loads(ln) for ln in (pathlib.Path(workdir) / "metrics.jsonl").read_text().splitlines()]
+    if not rows or not np.isfinite([rows[-1]["train_loss"], rows[-1]["val_loss"]]).all():
+        raise AssertionError(f"{workdir}: metrics {rows}")
+    return rows[-1]
 
 
 def edge_cases(dev, gen):
@@ -630,6 +715,45 @@ def corrupt_edge_cases(dev, gen):
     return cases
 
 
+CORRUPT_SEED = 0x9E3779B9
+
+
+def check_and_time_corrupt(name, fn, ref, src, kw, shape, flush, void=None, tag="corrupt"):
+    """One of K1/K2 on one input: bit-equal to its plain version, rows
+    summing to 1, then cold and warm against the bound."""
+    seed = CORRUPT_SEED
+    sigma, n_classes = kw["sigma"], kw.get("n_classes", src.shape[-1])
+    got = fn(src, seed, **kw)
+    want = ref(src, seed, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    sum_err = (got.sum(-1) - 1.0).abs().max().item()
+    if not (torch.equal(got, want) and sum_err <= CORRUPT_SUM_TOL):
+        raise AssertionError(f"{name} {shape} C={n_classes} sigma={sigma}: not bit-equal to its plain version "
+                             f"(max abs err {err:.3e}) or row sums off by {sum_err:.3e}")
+    if void is not None and sigma == 0.0:
+        rows = got[void]
+        if not torch.equal(rows, torch.full_like(rows, 1.0 / n_classes)):
+            raise AssertionError("void rows at sigma 0 are not exactly uniform")
+    del want
+    cold, ahead_cold = tail_bench.device_times(lambda: fn(src, seed, **kw), flush=flush)
+    warm, ahead_warm = tail_bench.device_times(lambda: fn(src, seed, **kw))
+    plain_ms = cuda_time_ms(lambda: ref(src, seed, **kw), 5)
+    out = torch.empty_like(got)
+    fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
+    nbytes = src.numel() * src.element_size() + got.numel() * got.element_size()
+    ops = (CORRUPT_OPS + (name == "corrupt_onehot")) * got.numel()
+    t = {"max_abs_err": err, "ms": statistics.median(cold), "warm_ms": warm[0], "plain_ms": plain_ms,
+         **tail_bench.bound_ms(nbytes, ops)}
+    phase(tag, f"{name:14s} {tuple(got.shape)} sigma={sigma}: bit-equal, row_sum_err="
+          f"{sum_err:.1e}; cold {t['ms']:.4f} ms (launches {min(cold):.4f}..{max(cold):.4f}), warm "
+          f"{t['warm_ms']:.4f}, plain {plain_ms:.4f}, store floor {fill_ms:.4f} "
+          f"({got.numel() * 4 / 1e6:.1f} MB); {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations, "
+          f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_ms'] / t['ms']:.1%} cold "
+          f"({t['bound_ms'] / t['warm_ms']:.1%} warm); host ahead {ahead_cold and ahead_warm}")
+    return t
+
+
 def run_corrupt_phase(dev):
     """K1 and K2 bit-equal to their plain versions at the training shapes
     (the train step's crop, and the eval step's full frames), timed warm and
@@ -639,63 +763,29 @@ def run_corrupt_phase(dev):
     path launches."""
     gen = torch.Generator().manual_seed(3)
     flush = tail_bench.flush_buffer(dev)
-    seed = 0x9E3779B9
+    seed = CORRUPT_SEED
     report = {}
-
-    def check_and_time(name, fn, ref, src, kw, shape, void=None):
-        """One kernel on one input: bit-equal to its plain version, rows
-        summing to 1, then cold and warm against the bound."""
-        sigma, n_classes = kw["sigma"], kw.get("n_classes", src.shape[-1])
-        got = fn(src, seed, **kw)
-        want = ref(src, seed, **kw)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        sum_err = (got.sum(-1) - 1.0).abs().max().item()
-        if not (torch.equal(got, want) and sum_err <= CORRUPT_SUM_TOL):
-            raise AssertionError(f"{name} {shape} C={n_classes} sigma={sigma}: not bit-equal to its plain version "
-                                 f"(max abs err {err:.3e}) or row sums off by {sum_err:.3e}")
-        if void is not None and sigma == 0.0:
-            rows = got[void]
-            if not torch.equal(rows, torch.full_like(rows, 1.0 / n_classes)):
-                raise AssertionError("void rows at sigma 0 are not exactly uniform")
-        del want
-        cold, ahead_cold = tail_bench.device_times(lambda: fn(src, seed, **kw), flush=flush)
-        warm, ahead_warm = tail_bench.device_times(lambda: fn(src, seed, **kw))
-        plain_ms = cuda_time_ms(lambda: ref(src, seed, **kw), 5)
-        out = torch.empty_like(got)
-        fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
-        nbytes = src.numel() * src.element_size() + got.numel() * got.element_size()
-        ops = (CORRUPT_OPS + (name == "corrupt_onehot")) * got.numel()
-        t = {"max_abs_err": err, "ms": statistics.median(cold), "warm_ms": warm[0], "plain_ms": plain_ms,
-             **tail_bench.bound_ms(nbytes, ops)}
-        phase("corrupt", f"{name:14s} {tuple(got.shape)} sigma={sigma}: bit-equal, row_sum_err="
-              f"{sum_err:.1e}; cold {t['ms']:.4f} ms (launches {min(cold):.4f}..{max(cold):.4f}), warm "
-              f"{t['warm_ms']:.4f}, plain {plain_ms:.4f}, store floor {fill_ms:.4f} "
-              f"({got.numel() * 4 / 1e6:.1f} MB); {nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G operations, "
-              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}), share {t['bound_ms'] / t['ms']:.1%} cold "
-              f"({t['bound_ms'] / t['warm_ms']:.1%} warm); host ahead {ahead_cold and ahead_warm}")
-        return t
-
     for shape in ((TRAIN_BATCH, *CROP), (BATCH, H, W)):
         labels = _labels_with_void(shape, gen).to(dev)
         probs = torch.softmax(torch.randn((*shape, N_CLASSES), generator=gen) * 3.0, -1).to(dev)
         void = labels == CAMVID.void_label
         for sigma in (0.0, SIGMA):
-            report["corrupt_onehot", shape, sigma] = check_and_time(
+            report["corrupt_onehot", shape, sigma] = check_and_time_corrupt(
                 "corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
-                {"n_classes": N_CLASSES, "sigma": sigma}, shape, void)
-            report["corrupt_probs", shape, sigma] = check_and_time(
-                "corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs, {"sigma": sigma}, shape)
+                {"n_classes": N_CLASSES, "sigma": sigma}, shape, flush, void)
+            report["corrupt_probs", shape, sigma] = check_and_time_corrupt(
+                "corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs, {"sigma": sigma}, shape,
+                flush)
     # the wide instance at the training crop, batch 8; it runs on no path of
     # the datasets the repo has
     shape = (BATCH, *CROP)
     for c in WIDE_CLASSES[1:]:
         labels = torch.randint(-1, c + 1, shape, generator=gen, dtype=torch.int32).to(dev)
         probs = torch.softmax(torch.randn((*shape, c), generator=gen) * 3.0, -1).to(dev)
-        check_and_time("corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
-                       {"n_classes": c, "sigma": SIGMA}, shape)
-        check_and_time("corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs,
-                       {"sigma": SIGMA}, shape)
+        check_and_time_corrupt("corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, labels,
+                               {"n_classes": c, "sigma": SIGMA}, shape, flush)
+        check_and_time_corrupt("corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs,
+                               {"sigma": SIGMA}, shape, flush)
         del labels, probs
     edge = corrupt_edge_cases(dev, gen)
     for sigma in (0.0, SIGMA):
@@ -1253,17 +1343,12 @@ def run_search_phase(dev, fcn, flag_dae):
                 raise AssertionError(f"{name} search grid disagrees with the engine at eps={eps} K={k}")
 
     # the CLI at full width (its own seeded random weights)
-    buf = io.StringIO()
     reset_tail_counts()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["--synthetic", "--search", "--num-batches", "2", "--bf16", "--device", str(dev)])
-    secs = time.perf_counter() - t0
+    lines, secs = run_cli(cli.main, ["--synthetic", "--search", "--num-batches", "2", "--bf16", "--device", dev])
     launches += refine_tail.launches
-    lines = buf.getvalue().splitlines()
     for line in lines[:3]:
         phase("search", f"CLI: {line}")
-    if not (rc == 0 and len(lines) == 3 + 1 + N_CLASSES and lines[0].startswith("val search: best eps=")
+    if not (len(lines) == 3 + 1 + N_CLASSES and lines[0].startswith("val search: best eps=")
             and lines[1].startswith("step 0 (FCN-8 baseline): mIoU ") and " mIoU " in lines[2]
             and lines[3] == "per-class IoU (k=0 -> k=K):"):
         raise AssertionError(f"CLI printed {lines}")
@@ -1382,16 +1467,12 @@ def run_fcn_phase(dev, smi, workdir):
           f"{100.0 * fc6_all / step_ms:.1f}% of the step")
     del params, opt, train_step
 
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = fcn_cli.main(["--synthetic", "--bf16", "--max-epochs", "1", "--workdir", str(workdir / "cli"),
-                           "--device", str(dev)])
-    lines = buf.getvalue().splitlines()
-    if rc != 0 or not lines or not lines[0].startswith("epoch 0: train_loss=") or not lines[-1].startswith(
+    lines, secs = run_cli(fcn_cli.main, ["--synthetic", "--bf16", "--max-epochs", "1", "--workdir", workdir / "cli",
+                                         "--device", dev])
+    if not lines or not lines[0].startswith("epoch 0: train_loss=") or not lines[-1].startswith(
             "done: best val mIoU") or not (workdir / "cli" / "best_fcn8.npz").is_file():
         raise AssertionError(f"train_fcn8 CLI printed {lines}")
-    phase("fcn", f"CLI --synthetic --bf16 --max-epochs 1: {time.perf_counter() - t0:.1f} s; {lines[0]}")
+    phase("fcn", f"CLI --synthetic --bf16 --max-epochs 1: {secs:.1f} s; {lines[0]}")
     return timing
 
 
@@ -1479,19 +1560,13 @@ def run_demo_phase(dev):
     test refinement imply."""
     argv = ["--json", "--seed", "1", *seed_replication.CONFIGS["flagship"], "--device", str(dev)]
     args = demo.parse_args(argv)
-    buf = io.StringIO()
     reset_tail_counts()
     k1_before, k2_before = ck.corrupt_onehot.launches, ck.corrupt_probs.launches
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        rc = demo.main(argv)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    lines = buf.getvalue().splitlines()
+    lines, secs = run_cli(demo.main, argv)
     row = json.loads(lines[-1])
     keys = {"test_miou_fcn", "test_miou_refined", "delta_miou", "best_eps", "best_k", "engine", "mode", "arch",
             "dae_encoder"}
-    if rc != 0 or set(row) != keys:
+    if set(row) != keys:
         raise AssertionError(f"demo printed {lines[-3:]}")
     # the half search: per eps and val batch, K_max steps and K_max + 1
     # rectifications; then per test batch K steps and one rectification
@@ -1645,11 +1720,363 @@ def run_arch_phase(dev, fcn, smi):
     return launches, timing
 
 
+def hold_wires(raw, f32, file_cfg, dev, n: int) -> float:
+    """The first batch of each wire held to each other: the u8 batch copied
+    as the trainers copy it (``to_device``: the labels become int32) and
+    normalized on ``dev`` with the file's statistics, against the f32 batch
+    the runtime normalized on the host, on its ``n`` frames (the runtime
+    pads a short batch with zeros on both wires, which normalize to other
+    values on the device). Returns the largest difference; raises beyond
+    WIRE_TOL or where the labels (padding included) differ."""
+    x8, y8 = to_device(*raw, dev)
+    x, y = to_device(*f32, dev)
+    if x8.dtype != torch.uint8 or y8.dtype != torch.int32 or x.dtype != torch.float32:
+        raise AssertionError(f"wires: u8 {x8.dtype}/{y8.dtype}, f32 {x.dtype}")
+    if not torch.equal(y8, y):
+        raise AssertionError("the u8 wire's labels differ from the f32 wire's")
+    err = (normalize_image(x8[:n], file_cfg, input_scale=255.0) - x[:n]).abs().max().item()
+    if not err <= WIRE_TOL:
+        raise AssertionError(f"the u8 wire normalized on the device is {err:.3e} off the f32 wire (tol {WIRE_TOL})")
+    return err
+
+
+def lasagne_arrays(params: dict) -> list[np.ndarray]:
+    """The port's FCN-8 as a reference-era Lasagne checkpoint: the positional
+    list of ``get_all_param_values`` in build order, made with the inverse
+    of each converter of ``utils/import_weights``: OIHW convs and their
+    biases, fc6 and fc7 as flat FC matrices (Caffe's C, H, W order), IOHW
+    transposed convs without bias."""
+    jtree = params_to_jax(params)
+    arrays = []
+    for name, kind in FCN8_LASAGNE_ORDER:
+        w = jtree[name]["w"]  # HWIO, the JAX layout
+        if kind == "deconv":
+            arrays.append(np.ascontiguousarray(w.transpose(2, 3, 0, 1)))
+            continue
+        oihw = np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+        arrays.append(oihw.reshape(oihw.shape[0], -1) if kind == "fc" else oihw)
+        arrays.append(jtree[name]["b"])
+    return arrays
+
+
+def idle_share(intervals, window=None) -> tuple[float, float, float]:
+    """(busy ms, window ms, idle share) of device intervals (start, end) in
+    microseconds over ``window`` (start, end), by default the first start
+    to the last end; a moment is busy where any interval covers it."""
+    if window is None and intervals:
+        window = (min(s for s, _ in intervals), max(e for _, e in intervals))
+    clipped = sorted((max(s, window[0]), min(e, window[1])) for s, e in intervals) if window else []
+    clipped = [(s, e) for s, e in clipped if e > s]
+    if not clipped:
+        raise AssertionError("the profiler traced no device time")
+    busy, cur_start, cur_end = 0.0, None, None
+    for start, end in clipped:
+        if cur_end is None or start > cur_end:
+            if cur_end is not None:
+                busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+    busy += cur_end - cur_start
+    span = window[1] - window[0]
+    return busy / 1e3, span / 1e3, 1.0 - busy / span
+
+
+COPY_MARK = "chip_smoke.to_device"
+
+
+def profiled_training(fn, n_train: int):
+    """``fn()``, which trains one epoch of ``n_train`` batches through
+    ``train_dae``, under ``torch.profiler`` (CPU and CUDA), with each
+    batch's ``to_device`` marked as a range. Returns fn's value and
+    (busy ms, window ms, idle share) of the device, first over the train
+    steps (from the first batch's copy to the first val batch's), then over
+    the whole run's device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from iterative_inference_segm_tpu_torch.train import train_dae as trainer
+
+    def marked(*args, **kwargs):
+        with record_function(COPY_MARK):
+            return to_device(*args, **kwargs)
+
+    trainer.to_device = marked
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+    finally:
+        trainer.to_device = to_device
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events if e.device_type == DeviceType.CUDA]
+    marks = sorted(e.time_range.start for e in events if e.name == COPY_MARK)
+    if len(marks) <= n_train:
+        raise AssertionError(f"{len(marks)} marked copies; expected the {n_train} train batches and val")
+    return out, idle_share(spans, (marks[0], marks[n_train])), idle_share(spans)
+
+
+def _miou_of_lines(lines) -> list[float]:
+    """The k=0 and k=K mIoU the iterative_inference CLI printed."""
+    return [float(ln.split("mIoU ")[1].split()[0]) for ln in lines if " mIoU " in ln and "acc " in ln]
+
+
+def run_data_phase(dev, fcn, smi, root):
+    """Phase 18: a synthetic CamVid packed by the pack_dataset twin; the
+    first batch of each wire held to each other; the runtime's ms a batch
+    and the host->device copy's (pageable ``to_device`` against
+    ``device_prefetch``'s pinned side stream), per wire; one epoch of the
+    train_dae twin per wire with --packed (train images/s; then again under
+    the profiler for the device's idle share); the iterative_inference twin
+    serving the test split on each wire; one epoch through iterate_split and
+    epoch_reshuffled over the frames in memory (the --data-root path without
+    the PNG decode). Returns the refine_tail and K1 launches."""
+    packed = root / "camvid"
+    lines, secs = run_cli(pack_cli.main, ["--synthetic", "--out", packed, *split_flags(DATA_SPLITS)])
+    phase("data", f"pack_dataset twin --synthetic at {H}x{W}: {'; '.join(ln.split(' -> ')[0] for ln in lines)} "
+          f"in {secs:.1f} s, {sum((packed / f'{s}.iist').stat().st_size for s in DATA_SPLITS) / 1e6:.1f} MB")
+    with NativeDataset(packed / "val.iist") as ds:
+        (f32,), (raw,) = list(ds.batches(TRAIN_BATCH)), list(ds.batches(TRAIN_BATCH, raw=True))
+        file_cfg = dataclasses.replace(CAMVID, mean=ds.mean, std=ds.std)
+        n = min(ds.n, TRAIN_BATCH)
+    err = hold_wires(raw, f32, file_cfg, dev, n)
+    phase("data", f"the val batch ({n} frames, padded to {TRAIN_BATCH}), u8 wire normalized on the card vs f32 "
+          f"wire normalized by the runtime: max abs err {err:.3e} (tol {WIRE_TOL}), labels equal (u8 -> int32 "
+          "after the copy)")
+
+    host = {}
+    with NativeDataset(packed / "train.iist") as ds:
+        for wire in ("f32", "u8"):
+            times, kept, epoch = [], [], 0
+            while len(times) < DATA_TIMED_BATCHES:
+                it = ds.batches(TRAIN_BATCH, shuffle=True, seed=epoch, raw=wire == "u8")
+                epoch += 1
+                while True:
+                    t0 = time.perf_counter()
+                    batch = next(it, None)
+                    if batch is None:
+                        break
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    kept.append(batch)
+            host[wire] = (times, kept[:DATA_TIMED_BATCHES])
+    for wire, (times, kept) in host.items():
+        nbytes = sum(a.nbytes for a in kept[0])
+        pageable = []
+        for img, lab in kept:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            to_device(img, lab, dev)
+            torch.cuda.synchronize()
+            pageable.append((time.perf_counter() - t0) * 1e3)
+        pinned, out = [], []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for item in device_prefetch(kept, depth=2, device=dev):
+            torch.cuda.current_stream(dev).synchronize()
+            t1 = time.perf_counter()
+            pinned.append((t1 - t0) * 1e3)
+            t0 = t1
+            out.append(item)
+        for i in (0, len(kept) - 1):
+            if not all(torch.equal(o.cpu(), torch.from_numpy(a)) for o, a in zip(out[i], kept[i])):
+                raise AssertionError(f"{wire}: device_prefetch batch {i} differs from its source")
+        del out
+        rt, pg, pn = (statistics.median(v) for v in (times, pageable, pinned))
+        phase("data", f"{wire} wire, batch {TRAIN_BATCH} ({nbytes / 1e6:.1f} MB): runtime {rt:.3f} ms/batch "
+              f"({min(times):.3f}..{max(times):.3f}), host->device pageable to_device {pg:.3f} ms "
+              f"({nbytes / pg / 1e6:.2f} GB/s), device_prefetch pinned side stream {pn:.3f} ms "
+              f"({nbytes / pn / 1e6:.2f} GB/s); medians of {len(times)}/{len(pageable)}/{len(pinned)} batches; "
+              f"on {smi}")
+    del host
+
+    k1_before = ck.corrupt_onehot.launches
+    per_epoch = -(-DATA_SPLITS["train"] // TRAIN_BATCH) + -(-DATA_SPLITS["val"] // TRAIN_BATCH)
+    runs = 0
+    for wire in ("f32", "u8"):
+        argv = ["--packed", packed, "--wire", wire, "--bf16", "--batch-size", TRAIN_BATCH, "--dae-depth", 3,
+                "--dae-stem-pool", 1, "--max-epochs", 1, "--device", dev]
+        lines, secs = run_cli(dae_cli.main, [*argv, "--workdir", root / f"dae_{wire}"])
+        row = last_epoch(root / f"dae_{wire}")
+        _, steps, whole = profiled_training(
+            lambda: run_cli(dae_cli.main, [*argv, "--workdir", root / f"dae_{wire}_profiled"]),
+            -(-DATA_SPLITS["train"] // TRAIN_BATCH))
+        row_p = last_epoch(root / f"dae_{wire}_profiled")
+        runs += 2
+        phase("data", f"train_dae twin --packed --wire {wire} --bf16, batch {TRAIN_BATCH}, 1 epoch "
+              f"({DATA_SPLITS['train']} frames): {row['train_images_per_sec']:.1f} train images/s, epoch "
+              f"{row['epoch_seconds']:.3f} s, train_loss {row['train_loss']:.4f}, {secs:.1f} s wall; under the "
+              f"profiler {row_p['train_images_per_sec']:.1f} images/s, the device busy {steps[0]:.1f} of "
+              f"{steps[1]:.1f} ms over the train steps (first batch's copy to val's), idle {steps[2]:.1%}; "
+              f"{whole[0]:.1f} of {whole[1]:.1f} ms from the run's first device operation to its last (init, "
+              f"train, val, checkpoint), idle {whole[2]:.1%}")
+    k1 = ck.corrupt_onehot.launches - k1_before
+    if k1 != runs * per_epoch:
+        raise AssertionError(f"train_dae --packed: K1 launched {k1} times; expected {runs * per_epoch}")
+
+    reset_tail_counts()
+    served = {}
+    for wire in ("f32", "u8"):
+        lines, secs = run_cli(cli.main, ["--packed", packed, "--wire", wire, "--device", dev])
+        served[wire] = _miou_of_lines(lines)
+        phase("data", f"iterative_inference twin --packed --wire {wire} (f32, general engine, K={K_STEPS}, "
+              f"{DATA_SPLITS['test']} test frames): {lines[0]} | {lines[1].strip()} ({secs:.1f} s)")
+    diff = max(abs(a - b) for a, b in zip(served["f32"], served["u8"]))
+    want = 2 * K_STEPS * -(-DATA_SPLITS["test"] // 4)
+    if len(served["f32"]) != 2 or diff > WIRE_MIOU_TOL or refine_tail.launches != want:
+        raise AssertionError(f"served wires: mIoU {served}, refine_tail {refine_tail.launches} (expected {want})")
+    check_no_strided("data")
+    tail_launches = refine_tail.launches
+    k1_total = k1
+
+    # --data-root without Pillow: the frames in memory, as the loaders give
+    # them (f32 in [0, 1], int32 labels), through the same iterators
+    with NativeDataset(packed / "train.iist") as ds:
+        (tr_i, tr_l), = ds.batches(DATA_SPLITS["train"], raw=True)
+    with NativeDataset(packed / "val.iist") as ds:
+        (va_i, va_l), = ds.batches(DATA_SPLITS["val"], raw=True)
+    tr_i, va_i = tr_i.astype(np.float32) / 255.0, va_i.astype(np.float32) / 255.0
+    tr_l, va_l = tr_l.astype(np.int32), va_l.astype(np.int32)
+    train_data = epoch_reshuffled(
+        lambda seed: iterate_split(tr_i, tr_l, batch_size=TRAIN_BATCH, shuffle=True, seed=seed), 0)
+    k1_before = ck.corrupt_onehot.launches
+    t0 = time.perf_counter()
+    result = train_dae(
+        fcn_params=fcn, dataset=CAMVID, train_data=train_data,
+        val_data=lambda: iterate_split(va_i, va_l, batch_size=TRAIN_BATCH),
+        tcfg=TrainConfig(max_epochs=1, batch_size=TRAIN_BATCH, seed=0, compute_dtype=torch.bfloat16),
+        sigma=SIGMA, from_gt=True, **DAE_KW,
+    )
+    torch.cuda.synchronize()
+    row = result["history"][-1]
+    k1 = ck.corrupt_onehot.launches - k1_before
+    if k1 != per_epoch or not np.isfinite(row["train_loss"]):
+        raise AssertionError(f"the in-memory epoch: K1 {k1}, history {result['history']}")
+    phase("data", f"iterate_split + epoch_reshuffled over the {DATA_SPLITS['train']} frames in memory (f32, "
+          f"to_device pageable), 1 epoch: {row['train_images_per_sec']:.1f} train images/s, epoch "
+          f"{row['epoch_seconds']:.3f} s, {time.perf_counter() - t0:.1f} s wall")
+    return tail_launches, k1_total + k1
+
+
+def run_em_phase(dev, smi, root):
+    """Phase 19: a synthetic EM stack (512x512x1, C = 2, 24/3/3) packed by
+    the pack_dataset twin; the train_dae twin on it (--packed --wire u8) in
+    the gt and natural regimes, with K1's and K2's launches; the
+    iterative_inference twin with --search on the DAE it trained, with K3's;
+    then K1/K2 at 32x256x256x2 bit-equal to their plain versions and K3 at
+    the general step's EM shape against refine_tail_reference, each timed
+    cold against its bound. Returns (refine_tail launches, K1 launches, K2
+    launches, {kernel: timing})."""
+    em_dir = root / "em"
+    lines, secs = run_cli(pack_cli.main, ["--dataset", "em", "--synthetic", "--out", em_dir,
+                                          *split_flags(EM_SPLITS)])
+    phase("em", f"pack_dataset twin --dataset em --synthetic ({EM.height}x{EM.width}x{EM.in_channels}, "
+          f"C={EM.n_classes}): {'; '.join(ln.split(' -> ')[0] for ln in lines)} in {secs:.1f} s")
+    per_run = EM_EPOCHS * (-(-EM_SPLITS["train"] // TRAIN_BATCH) + -(-EM_SPLITS["val"] // TRAIN_BATCH))
+    k = {"corrupt_onehot": 0, "corrupt_probs": 0}
+    for regime, extra, want in (("gt", [], (per_run, 0)), ("natural", ["--from-fcn"], (0, per_run))):
+        before = (ck.corrupt_onehot.launches, ck.corrupt_probs.launches)
+        lines, secs = run_cli(dae_cli.main, [
+            "--dataset", "em", "--packed", em_dir, "--wire", "u8", "--bf16", "--batch-size", TRAIN_BATCH,
+            "--dae-depth", 3, "--dae-stem-pool", 1, "--max-epochs", EM_EPOCHS, "--workdir", root / f"em_{regime}",
+            "--device", dev, *extra])
+        got = (ck.corrupt_onehot.launches - before[0], ck.corrupt_probs.launches - before[1])
+        row = last_epoch(root / f"em_{regime}")
+        if got != want:
+            raise AssertionError(f"EM {regime}: K1/K2 launched {got}; expected {want}")
+        k["corrupt_onehot"] += got[0]
+        k["corrupt_probs"] += got[1]
+        phase("em", f"train_dae twin --dataset em --packed --wire u8 {regime}: "
+              + " | ".join(ln for ln in lines if ln.startswith("epoch "))
+              + f"; K1/K2 launches {got[0]}/{got[1]}; {row['train_images_per_sec']:.1f} train images/s "
+              f"(the last epoch), {secs:.1f} s wall")
+    reset_tail_counts()
+    lines, secs = run_cli(cli.main, [
+        "--dataset", "em", "--packed", em_dir, "--wire", "u8", "--dae-npz", root / "em_gt" / "best_dae.npz",
+        "--dae-depth", 3, "--dae-stem-pool", 1, "--search", "--bf16", "--device", dev])
+    best_k = int(lines[0].split(" K=")[1].split()[0])
+    n_val, n_test = (-(-EM_SPLITS[s] // 4) for s in ("val", "test"))
+    want = len(SEARCH_EPS) * n_val * SEARCH_KMAX + n_test * best_k
+    if refine_tail.launches != want:
+        raise AssertionError(f"EM CLI: refine_tail launched {refine_tail.launches} times; expected {want}")
+    check_no_strided("em")
+    tail_launches = refine_tail.launches
+    phase("em", f"iterative_inference twin --dataset em --packed --wire u8 --search --bf16 on the gt DAE: "
+          + " | ".join(ln.strip() for ln in lines[:3]) + f"; refine_tail launches {tail_launches} = search "
+          f"{len(SEARCH_EPS) * n_val * SEARCH_KMAX} + test {n_test * best_k}, none strided; {secs:.1f} s")
+
+    # the three kernels alone at C = 2, cold against their bound
+    gen = torch.Generator().manual_seed(40)
+    flush = tail_bench.flush_buffer(dev)
+    shape = (TRAIN_BATCH, *EM.train_crop)
+    lab = torch.randint(0, EM.n_classes, shape, generator=gen, dtype=torch.int32)
+    lab = torch.where(torch.rand(shape, generator=gen) < 0.02, torch.full_like(lab, EM.void_label), lab).to(dev)
+    probs = torch.softmax(torch.randn((*shape, EM.n_classes), generator=gen) * 3.0, -1).to(dev)
+    report = {}
+    for sigma in (0.0, SIGMA):
+        report["corrupt_onehot", sigma] = check_and_time_corrupt(
+            "corrupt_onehot", ck.corrupt_onehot, ck.corrupt_onehot_kernel_reference, lab,
+            {"n_classes": EM.n_classes, "sigma": sigma}, shape, flush, lab == EM.void_label, tag="em")
+        report["corrupt_probs", sigma] = check_and_time_corrupt(
+            "corrupt_probs", ck.corrupt_probs, ck.corrupt_probs_kernel_reference, probs, {"sigma": sigma},
+            shape, flush, tag="em")
+    y = torch.softmax(torch.randn((GENERAL_BATCH, EM.height, EM.width, EM.n_classes), generator=gen) * 3.0,
+                      -1).to(dev)
+    u = (torch.randn(y.shape, generator=gen) * 3.0).to(dev, torch.bfloat16)
+    case = tail_bench.Case("em general_bf16", u, y)
+    err, agree = check_kernel_case(case.name, case.kernel(), case.plain(), False, y.dtype)
+    t = tail_bench.time_case(case, flush)
+    report["refine_tail"] = {"max_abs_err": err, **t}
+    phase("em", f"refine_tail general step y={tuple(y.shape)} f32 u bf16: max_abs_err={err:.3e} argmax_agree="
+          f"{agree:.6f}; " + tail_bench.report(t) + f"; on {smi}; clocks.sm, max, power, temp: {clocks()}")
+    return tail_launches, k["corrupt_onehot"], k["corrupt_probs"], report
+
+
+def run_utils_phase(dev, fcn, root):
+    """Phase 20: the full-width FCN's own weights written as a Lasagne
+    positional npz with the inverse converters, imported back bit for bit,
+    and served with --fcn-reference-npz, which must print the lines that
+    --fcn-npz prints on the same weights; then one short train_fcn8 twin
+    epoch with --profile-dir, whose trace must hold CUDA kernel events.
+    Returns the refine_tail launches."""
+    save_npz(root / "fcn8.npz", fcn)
+    np.savez(root / "fcn8_lasagne.npz", *lasagne_arrays(fcn))
+    template = init_fcn8(torch.Generator().manual_seed(50), n_classes=N_CLASSES,
+                         fc_channels=int(fcn["fc7"]["w"].shape[0]), device=dev)
+    imported = import_lasagne_npz(root / "fcn8_lasagne.npz", template, strict=True)
+    if not all(torch.equal(imported[k][kk], t) for k, v in fcn.items() for kk, t in v.items()):
+        raise AssertionError("the Lasagne npz did not import back to the FCN's own weights")
+    reset_tail_counts()
+    common = ["--synthetic", "--num-batches", 1, "--bf16", "--device", dev]
+    by_npz, s1 = run_cli(cli.main, [*common, "--fcn-npz", root / "fcn8.npz"])
+    by_ref, s2 = run_cli(cli.main, [*common, "--fcn-reference-npz", root / "fcn8_lasagne.npz"])
+    if by_npz != by_ref or refine_tail.launches != 2 * K_STEPS:
+        raise AssertionError(f"--fcn-reference-npz printed {by_ref[:2]}, --fcn-npz {by_npz[:2]}; refine_tail "
+                             f"{refine_tail.launches}")
+    check_no_strided("utils")
+    phase("utils", f"{len(lasagne_arrays(fcn))} Lasagne arrays from the full-width FCN imported back bit for bit; "
+          f"--fcn-reference-npz prints what --fcn-npz prints ({len(by_ref)} lines; {by_ref[1].strip()}; "
+          f"{s1:.1f} / {s2:.1f} s)")
+    trace_dir = root / "trace"
+    lines, secs = run_cli(fcn_cli.main, ["--synthetic", "--bf16", "--max-epochs", 1, "--num-train-batches", 2,
+                                         "--num-val-batches", 1, "--profile-dir", trace_dir,
+                                         "--workdir", root / "fcn8", "--device", dev])
+    trace = trace_dir / profiling.TRACE_FILE
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    if not kernels:
+        raise AssertionError(f"{trace} holds no CUDA kernel events ({len(events)} events)")
+    phase("utils", f"train_fcn8 twin --profile-dir, 1 epoch of 2 batches of 10: {lines[0]}; {trace.name} "
+          f"{trace.stat().st_size / 1e6:.1f} MB, {len(events)} events, {len(kernels)} CUDA kernels "
+          f"({len({e['name'] for e in kernels})} distinct); {secs:.1f} s")
+    return refine_tail.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     cap = torch.cuda.get_device_capability(0)
@@ -1659,15 +2086,18 @@ def main() -> int:
     if cap != (9, 0):
         raise AssertionError(f"the kernels are built for sm_90a; this card is {cap}")
 
-    # one nvcc per source, all started together
+    # one nvcc per source and g++ for the native input runtime, all started together
     t0 = time.perf_counter()
     sources = ("refine_tail", "corruption", "vpu_probe")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(_build.build_host, native_loader.NATIVE_SRC, "input_runtime")
         libs = dict(zip(sources, pool.map(_build.build, sources)))
+        host_lib = host.result()
     for src, lib in libs.items():
         _build.load(src)
         phase("build", f"nvcc sm_90a {lib.name}; ptxas: {ptxas_summary(lib.with_suffix('.log'))}")
-    phase("build", f"{len(libs)} kernels built in {time.perf_counter() - t0:.1f} s")
+    phase("build", f"g++ {host_lib.name} (native/input_runtime.cc, {' '.join(_build.HOST_FLAGS)})")
+    phase("build", f"{len(libs)} kernels and the input runtime built in {time.perf_counter() - t0:.1f} s")
 
     fcn, dae = full_width_params(dev)
     worst, kreport = run_kernel_phase(dev, fcn, dae, general_params(dev))
@@ -1700,6 +2130,19 @@ def main() -> int:
     train_launches["corrupt_probs"] += k2
     arch_launches, _ = run_arch_phase(dev, fcn, smi)
     launches += arch_launches
+
+    data_root = _build.BUILD_DIR / "chip_smoke_data"
+    shutil.rmtree(data_root, ignore_errors=True)
+    data_root.mkdir(parents=True)
+    data_launches, k1 = run_data_phase(dev, fcn, smi, data_root)
+    launches += data_launches
+    train_launches["corrupt_onehot"] += k1
+    em_launches, k1, k2, _ = run_em_phase(dev, smi, data_root)
+    launches += em_launches
+    train_launches["corrupt_onehot"] += k1
+    train_launches["corrupt_probs"] += k2
+    launches += run_utils_phase(dev, fcn, data_root)
+    shutil.rmtree(data_root)
 
     # No single PyTorch call computes any of the five functions, so each
     # library_ms is null. K3's entry is the half engine's step (bf16, the
@@ -1737,6 +2180,7 @@ def main() -> int:
             "ms": t["cold_ms"], "plain_ms": t["plain_cold_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
+    phase("done", f"phases 1-20 in {time.perf_counter() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

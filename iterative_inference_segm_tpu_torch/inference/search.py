@@ -55,8 +55,10 @@ def _grid(batches, eps_grid, k_max, device, cms_fn) -> np.ndarray:
     for ei, eps in enumerate(eps_grid):
         cms = None
         for x, labels in batches:
-            x = torch.as_tensor(np.asarray(x, np.float32), device=device)
-            labels = torch.as_tensor(np.asarray(labels), device=device)
+            # numpy batches, or tensors already on the device (the CLI's u8
+            # wire normalizes val there once)
+            x = torch.as_tensor(x).to(device=device, dtype=torch.float32)
+            labels = torch.as_tensor(labels).to(device)
             c = cms_fn(float(eps), x, labels)
             cms = c if cms is None else cms + c
         for k in range(k_max + 1):

@@ -4,15 +4,23 @@ k=0 (the FCN baseline) and k=K. With ``--search`` it first grid-searches
 (eps, K) on the validation split and evaluates the best pair on test.
 
 The twin of the JAX package's ``scripts/iterative_inference.py``: the same
-flags, defaults, refusals and printed lines, plus ``--device``. Flags whose
-paths the port does not have yet exit with an error that names ROADMAP.md.
-Data is synthetic (the disk loaders are not ported).
+flags, defaults, refusals, printed lines and dump files, plus ``--device``.
+The data is ``--packed DIR`` (the native runtime; val is read only under
+``--search``; on ``--wire u8`` each batch crosses as bytes and is normalized
+on the card with the file's statistics), ``--data-root ROOT`` (the disk
+loaders; needs Pillow) or ``--synthetic``. ``--fcn-reference-npz`` and
+``--dae-mirror-npz`` load reference-era Lasagne checkpoints
+(``utils/import_weights``); ``--dump-dir`` writes colorized PNGs (Pillow).
+The flags of sharded and pipeline-parallel serving are not ported yet and
+exit with an error that names ROADMAP.md.
 
 Examples:
     python -m iterative_inference_segm_tpu_torch.scripts.iterative_inference \\
         --synthetic --tiny --num-steps 5 --device cpu
     python -m iterative_inference_segm_tpu_torch.scripts.iterative_inference \\
         --synthetic --search --bf16 --num-batches 2
+    python -m iterative_inference_segm_tpu_torch.scripts.iterative_inference \\
+        --packed /data/packed --wire u8 --dae-npz best_dae.npz --search
 """
 
 from __future__ import annotations
@@ -23,22 +31,10 @@ import sys
 # flags of the JAX CLI whose paths the port does not have yet, with the
 # ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "data_root": "--data-root (the disk loaders) is not ported yet (ROADMAP.md, Queue 1 item 8)",
-    "packed": "--packed (the native input runtime) is not ported yet (ROADMAP.md, Queue 1 item 8)",
-    "wire": "--wire u8 (the packed byte wire) is not ported yet (ROADMAP.md, Queue 1 item 8)",
     "devices": "--devices (sharded serving) is not ported yet (ROADMAP.md, Queue 1 item 12)",
     "pp": "--pp (pipeline-parallel serving) is not ported yet (ROADMAP.md, Queue 1 item 12)",
     "pp_stages": "--pp-stages is not ported yet (ROADMAP.md, Queue 1 item 12)",
     "pp_microbatches": "--pp-microbatches is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "dae_mirror_npz": "--dae-mirror-npz (utils/import_weights.import_mirror_dae_npz) is not "
-                      "ported yet (ROADMAP.md, Queue 1 item 10)",
-    "fcn_reference_npz": "--fcn-reference-npz (utils/import_weights) is not ported yet "
-                         "(ROADMAP.md, Queue 1 item 10)",
-    "fcn_flip_deconvs": "--fcn-flip-deconvs (utils/import_weights) is not ported yet "
-                        "(ROADMAP.md, Queue 1 item 10)",
-    "dump_dir": "--dump-dir (utils/colorize) is not ported yet (ROADMAP.md, Queue 1 item 10)",
-    "dump_trajectory": "--dump-trajectory (utils/colorize) is not ported yet "
-                       "(ROADMAP.md, Queue 1 item 10)",
 }
 
 
@@ -53,8 +49,12 @@ def parse_args(argv=None):
                    help="torch device to run on ('cuda' needs a card; 'cpu' runs the "
                         "kernels' plain versions)")
     p.add_argument("--fcn-npz", default=None, help="FCN-8 weights (flat npz, either package)")
-    p.add_argument("--fcn-reference-npz", default=None)
-    p.add_argument("--fcn-flip-deconvs", action="store_true")
+    p.add_argument("--fcn-reference-npz", default=None,
+                   help="load the FCN from a reference-era Lasagne positional .npz (layout "
+                        "conversion automatic)")
+    p.add_argument("--fcn-flip-deconvs", action="store_true",
+                   help="with --fcn-reference-npz: reverse the spatial taps of the transposed-conv "
+                        "kernels (checkpoints saved under the flipped convention)")
     p.add_argument("--dae-npz", default=None, help="DAE weights (flat npz with its stamp)")
     p.add_argument("--concat-h", nargs="*", default=["pool4"])
     p.add_argument("--dae-depth", type=int, default=4)
@@ -68,7 +68,9 @@ def parse_args(argv=None):
     p.add_argument("--arch", default="dae", choices=["dae", "mirror", "contextmod"],
                    help="score network: the DAE, the mirror DAE, or the dilated context module")
     p.add_argument("--dae-tied", action="store_true", help="mirror arch: expect a weight-tied checkpoint")
-    p.add_argument("--dae-mirror-npz", default=None)
+    p.add_argument("--dae-mirror-npz", default=None,
+                   help="load the mirror DAE from a reference-era positional .npz "
+                        "(utils.import_weights.import_mirror_dae_npz)")
     p.add_argument("--epsilon", type=float, default=0.1)
     p.add_argument("--num-steps", type=int, default=5)
     p.add_argument("--mode", default="score", choices=["score", "energy"])
@@ -88,25 +90,31 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true")
     p.add_argument("--tiny", action="store_true", help="96x128 frames, fc 64")
     p.add_argument("--num-batches", type=int, default=4)
-    p.add_argument("--dump-dir", default=None)
-    p.add_argument("--dump-trajectory", action="store_true")
+    p.add_argument("--dump-dir", default=None, help="write colorized PNG predictions here (Pillow)")
+    p.add_argument("--dump-trajectory", action="store_true",
+                   help="with --dump-dir: dump every step y_0..y_K of the first batch")
     args = p.parse_args(argv)
     for name, why in _NOT_PORTED.items():
         if getattr(args, name) != p.get_default(name):
             p.error(why)
+    if args.wire != "f32" and not args.packed:
+        p.error("--wire u8 requires --packed (the wire format is a property "
+                "of the packed-path input runtime)")
     return args
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    import dataclasses
+    import os
+
     import numpy as np
     import torch
 
     from iterative_inference_segm_tpu_torch.data.config_datasets import DATASET_CONFIGS
     from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
-    from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
     from iterative_inference_segm_tpu_torch.inference.fused import make_half_refiner
-    from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner
+    from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner, refine_with_trajectory
     from iterative_inference_segm_tpu_torch.inference.search import (
         grid_search_eps_k,
         grid_search_eps_k_half,
@@ -138,7 +146,11 @@ def main(argv=None) -> int:
         torch.Generator().manual_seed(args.seed), n_classes=cfg.n_classes,
         in_channels=cfg.in_channels, fc_channels=fc_channels, device=device,
     )
-    if args.fcn_npz:
+    if args.fcn_reference_npz:
+        from iterative_inference_segm_tpu_torch.utils.import_weights import import_lasagne_npz
+
+        fcn_params = import_lasagne_npz(args.fcn_reference_npz, fcn_params, flip_deconvs=args.fcn_flip_deconvs)
+    elif args.fcn_npz:
         fcn_params = load_npz(args.fcn_npz, fcn_params)
     widths = tuple(args.dae_widths) if args.dae_widths else None
     dae_params = init_score_template(
@@ -146,7 +158,13 @@ def main(argv=None) -> int:
         h_taps=tuple(args.concat_h), depth=args.dae_depth, stem_pool=args.dae_stem_pool,
         tail=args.dae_tail, widths=widths, tied=args.dae_tied, device=device,
     )
-    if args.dae_npz:
+    if args.dae_mirror_npz:
+        if args.arch != "mirror":
+            raise SystemExit("--dae-mirror-npz requires --arch mirror")
+        from iterative_inference_segm_tpu_torch.utils.import_weights import import_mirror_dae_npz
+
+        dae_params = import_mirror_dae_npz(args.dae_mirror_npz, dae_params)
+    elif args.dae_npz:
         expect = expected_meta(
             args.arch, depth=args.dae_depth, stem_pool=args.dae_stem_pool, tail=args.dae_tail,
             widths=widths, encoder=args.dae_encoder, tied=args.dae_tied,
@@ -156,17 +174,51 @@ def main(argv=None) -> int:
     score_logits = score_logits_fn(args.arch)
     dae_kwargs = score_kwargs(args.arch, depth=args.dae_depth, encoder=args.dae_encoder)
 
-    def get_batches(split_seed):
-        return [
-            (normalize_image(torch.from_numpy(i), cfg).numpy(), lab)
-            for i, lab in synthetic_batches(
+    def host_normalized(batches, norm_cfg):
+        return [(normalize_image(torch.from_numpy(np.asarray(i)), norm_cfg).numpy(), lab) for i, lab in batches]
+
+    u8_wire = bool(args.packed) and args.wire == "u8"
+    test_cfg = cfg  # the statistics the u8 wire's test batches are normalized with
+    if args.packed:
+        from iterative_inference_segm_tpu_torch.data.native_loader import NativeDataset
+
+        def packed_batches(split, *, device_normalize=False):
+            """The split's batches and the config with the file header's
+            statistics. On the u8 wire the bytes stay on the host (each test
+            batch is normalized on the device as it is served, so the split
+            is never resident there at once); val, which --search iterates
+            once per eps, is normalized on the device up front."""
+            with NativeDataset(os.path.join(args.packed, f"{split}.iist")) as ds:
+                file_cfg = dataclasses.replace(cfg, mean=ds.mean, std=ds.std)
+                out = []
+                for i, lab in ds.batches(args.batch_size, raw=u8_wire):
+                    if u8_wire and device_normalize:
+                        i = normalize_image(torch.from_numpy(i).to(device), file_cfg, input_scale=255.0)
+                    out.append((i, np.asarray(lab, np.int32)))
+                return out, file_cfg
+
+        # val is read only by --search: a serving layout may ship test.iist alone
+        val_batches = packed_batches("val", device_normalize=True)[0] if args.search else []
+        test_batches, test_cfg = packed_batches("test")
+    elif args.synthetic or not args.data_root:
+        from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
+
+        def get_batches(split_seed):
+            return host_normalized(synthetic_batches(
                 cfg=cfg, batch_size=args.batch_size, num_batches=args.num_batches,
                 height=height, width=width, seed=split_seed,
-            )
-        ]
+            ), cfg)
 
-    val_batches = get_batches(args.seed + 500)
-    test_batches = get_batches(args.seed + 900)
+        val_batches = get_batches(args.seed + 500)
+        test_batches = get_batches(args.seed + 900)
+    else:
+        from iterative_inference_segm_tpu_torch.data.camvid import iterate_split
+        from iterative_inference_segm_tpu_torch.data.loaders import load_dataset_split
+
+        va_i, va_l = load_dataset_split(args.dataset, args.data_root, "val", cfg)
+        te_i, te_l = load_dataset_split(args.dataset, args.data_root, "test", cfg)
+        val_batches = host_normalized(iterate_split(va_i, va_l, batch_size=args.batch_size), cfg)
+        test_batches = host_normalized(iterate_split(te_i, te_l, batch_size=args.batch_size), cfg)
 
     if args.engine == "half" and (args.dae_stem_pool < 1 or args.arch != "dae"):
         raise SystemExit("--engine half requires --dae-stem-pool >= 1 "
@@ -175,6 +227,12 @@ def main(argv=None) -> int:
         raise SystemExit(
             "--renorm is a general-engine knob (the pooled engine's update "
             "has no renormalization step); rerun with --engine general"
+        )
+    if args.engine == "half" and args.dump_trajectory:
+        raise SystemExit(
+            "--dump-trajectory is a general-engine artifact (full-res y_k "
+            "states); the half engine iterates a pooled map — rerun with "
+            "--engine general to dump a trajectory"
         )
 
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -211,14 +269,49 @@ def main(argv=None) -> int:
             compute_dtype=compute_dtype, dae_kwargs=dae_kwargs,
         )
 
+    def put_x(images):
+        """A test batch on the device, normalized: the u8 wire's bytes with
+        the test file's statistics, the others as they come (normalized on
+        the host)."""
+        x = torch.from_numpy(np.asarray(images)).to(device)
+        if u8_wire:
+            return normalize_image(x, test_cfg, input_scale=255.0)
+        return x.to(torch.float32)
+
+    if args.dump_dir and args.dump_trajectory and test_batches:
+        from iterative_inference_segm_tpu_torch.inference.fused import no_autograd
+        from iterative_inference_segm_tpu_torch.utils.colorize import save_label_png
+
+        with no_autograd(args.mode):
+            y0, h = fcn8_apply(fcn_params, put_x(test_batches[0][0]), return_features=tuple(args.concat_h),
+                               compute_dtype=compute_dtype)
+            traj = refine_with_trajectory(
+                lambda y: score_logits(dae_params, y, h, **dae_kwargs), y0,
+                eps=eps, num_steps=num_steps, mode=args.mode, renorm=args.renorm,
+            )
+        traj = traj.argmax(-1).cpu().numpy()  # (K+1, B, H, W)
+        os.makedirs(args.dump_dir, exist_ok=True)
+        for k in range(traj.shape[0]):
+            for j in range(traj.shape[1]):
+                save_label_png(os.path.join(args.dump_dir, f"traj_{j:02d}_step{k:02d}.png"), traj[k, j], cfg)
+
     cm0 = cmk = None
-    for images, labels in test_batches:
-        y0, yk = refine(torch.from_numpy(np.asarray(images, np.float32)).to(device))
+    for bi, (images, labels) in enumerate(test_batches):
+        y0, yk = refine(put_x(images))
+        p0, pk = torch.argmax(y0, -1), torch.argmax(yk, -1)
         labels = torch.from_numpy(np.asarray(labels)).to(device)
-        c0 = confusion_matrix(torch.argmax(y0, -1), labels, n_classes=cfg.n_classes)
-        ck = confusion_matrix(torch.argmax(yk, -1), labels, n_classes=cfg.n_classes)
+        c0 = confusion_matrix(p0, labels, n_classes=cfg.n_classes)
+        ck = confusion_matrix(pk, labels, n_classes=cfg.n_classes)
         cm0 = c0 if cm0 is None else cm0 + c0
         cmk = ck if cmk is None else cmk + ck
+        if args.dump_dir:
+            from iterative_inference_segm_tpu_torch.utils.colorize import save_label_png
+
+            os.makedirs(args.dump_dir, exist_ok=True)
+            p0, pk = p0.cpu().numpy(), pk.cpu().numpy()
+            for j in range(pk.shape[0]):
+                save_label_png(os.path.join(args.dump_dir, f"b{bi:03d}_{j:02d}_k{num_steps}.png"), pk[j], cfg)
+                save_label_png(os.path.join(args.dump_dir, f"b{bi:03d}_{j:02d}_k0.png"), p0[j], cfg)
 
     m0 = metrics_from_confusion(cm0)
     mk = metrics_from_confusion(cmk)

@@ -4,8 +4,12 @@ The twin of the JAX package's ``scripts/train_fcn8.py``, with the same flags
 plus ``--device``. The workdir gets ``metrics.jsonl``, ``best_fcn8.npz``
 (JAX layout, stamped ``{"arch": "fcn8", "fc_channels": ...}``; the
 ``--fcn-npz`` flags of both packages read it) and ``ckpt/<epoch>/`` for
-resuming. Flags whose paths the port does not have yet exit with an error
-that names their ROADMAP.md item.
+resuming. ``--packed`` (with ``--wire f32|u8``) and ``--data-root`` pick the
+data as in ``train_dae``'s twin; ``--load-reference-npz`` starts from a
+reference-era Lasagne checkpoint (``utils/import_weights``) and
+``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the run
+(``utils/profiling``). ``--devices`` is not ported yet and exits with an
+error that names its ROADMAP.md item.
 
 Examples:
     python -m iterative_inference_segm_tpu_torch.scripts.train_fcn8 \\
@@ -17,6 +21,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import sys
@@ -24,13 +29,7 @@ import sys
 # flags of the JAX CLI whose paths the port does not have yet, with the
 # ROADMAP.md item that ports them
 _NOT_PORTED = {
-    "packed": "--packed (the native input runtime) is not ported yet (ROADMAP.md, Queue 1 item 8)",
-    "wire": "--wire u8 (the packed byte wire) is not ported yet (ROADMAP.md, Queue 1 item 8)",
-    "data_root": "--data-root (the disk loaders) is not ported yet (ROADMAP.md, Queue 1 item 8)",
     "devices": "--devices (data-parallel training) is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "profile_dir": "--profile-dir (utils/profiling) is not ported yet (ROADMAP.md, Queue 1 item 10)",
-    "load_reference_npz": "--load-reference-npz (utils/import_weights) is not ported yet "
-                          "(ROADMAP.md, Queue 1 item 10)",
 }
 
 
@@ -44,7 +43,8 @@ def parse_args(argv=None):
     p.add_argument("--devices", default=None)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on ('cuda' needs a card; 'cpu' runs there)")
-    p.add_argument("--profile-dir", default=None)
+    p.add_argument("--profile-dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run (trace.json) here")
     p.add_argument("--learning-rate", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=1e-4)
     p.add_argument("--batch-size", type=int, default=10)
@@ -55,7 +55,9 @@ def parse_args(argv=None):
     p.add_argument("--bf16", action="store_true", help="bf16 conv compute")
     p.add_argument("--workdir", default=None)
     p.add_argument("--load-npz", default=None, help="initialize from a flat .npz export (either package)")
-    p.add_argument("--load-reference-npz", default=None)
+    p.add_argument("--load-reference-npz", default=None,
+                   help="initialize from a reference-era Lasagne checkpoint (positional np.savez of "
+                        "get_all_param_values; OIHW/flat-FC/IOHW layouts converted automatically)")
     p.add_argument("--tiny", action="store_true", help="96x128 frames, fc 64, crop 64")
     p.add_argument("--num-train-batches", type=int, default=8, help="synthetic only")
     p.add_argument("--num-val-batches", type=int, default=2, help="synthetic only")
@@ -63,6 +65,9 @@ def parse_args(argv=None):
     for name, why in _NOT_PORTED.items():
         if getattr(args, name) != p.get_default(name):
             p.error(why)
+    if args.wire != "f32" and not args.packed:
+        p.error("--wire u8 requires --packed (the wire format is a property "
+                "of the packed-path input runtime)")
     return args
 
 
@@ -71,10 +76,11 @@ def main(argv=None) -> int:
     import torch
 
     from iterative_inference_segm_tpu_torch.data.config_datasets import DATASET_CONFIGS
-    from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
     from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
+    from iterative_inference_segm_tpu_torch.scripts._train_data import train_sources
     from iterative_inference_segm_tpu_torch.train.loop import TrainConfig
     from iterative_inference_segm_tpu_torch.train.train_fcn8 import train_fcn8
+    from iterative_inference_segm_tpu_torch.utils import profiling
     from iterative_inference_segm_tpu_torch.utils.checkpoint import load_npz
     from iterative_inference_segm_tpu_torch.utils.experiment import build_experiment_name
 
@@ -99,17 +105,7 @@ def main(argv=None) -> int:
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
     )
 
-    def train_data():
-        return synthetic_batches(
-            cfg=cfg, batch_size=args.batch_size, num_batches=args.num_train_batches,
-            height=height, width=width, seed=args.seed,
-        )
-
-    def val_data():
-        return synthetic_batches(
-            cfg=cfg, batch_size=args.batch_size, num_batches=args.num_val_batches,
-            height=height, width=width, seed=args.seed + 10_000,
-        )
+    cfg, train_data, val_data, step_kwargs = train_sources(args, cfg, height=height, width=width)
 
     workdir = args.workdir or os.path.join(
         "experiments",
@@ -118,29 +114,37 @@ def main(argv=None) -> int:
         ),
     )
     params = None
-    if args.load_npz:
+    if args.load_npz or args.load_reference_npz:
         template = init_fcn8(
             torch.Generator().manual_seed(0), n_classes=cfg.n_classes,
             in_channels=cfg.in_channels, fc_channels=fc_channels, device=device,
         )
-        params = load_npz(args.load_npz, template)
+        if args.load_reference_npz:
+            from iterative_inference_segm_tpu_torch.utils.import_weights import import_lasagne_npz
 
-    result = train_fcn8(
-        dataset=cfg,
-        train_data=train_data,
-        val_data=val_data,
-        tcfg=tcfg,
-        fc_channels=fc_channels,
-        workdir=workdir,
-        augment=not args.no_augment,
-        params=params,
-        device=device,
-        epoch_callback=lambda e, h, _p: print(
-            f"epoch {e}: train_loss={h['train_loss']:.4f} val_loss={h['val_loss']:.4f} "
-            f"val_miou={h['val_miou']:.4f}",
-            flush=True,
-        ),
-    )
+            params = import_lasagne_npz(args.load_reference_npz, template)
+        else:
+            params = load_npz(args.load_npz, template)
+
+    trace = profiling.trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    with trace:
+        result = train_fcn8(
+            dataset=cfg,
+            train_data=train_data,
+            val_data=val_data,
+            tcfg=tcfg,
+            fc_channels=fc_channels,
+            workdir=workdir,
+            augment=not args.no_augment,
+            **step_kwargs,
+            params=params,
+            device=device,
+            epoch_callback=lambda e, h, _p: print(
+                f"epoch {e}: train_loss={h['train_loss']:.4f} val_loss={h['val_loss']:.4f} "
+                f"val_miou={h['val_miou']:.4f}",
+                flush=True,
+            ),
+        )
     print(
         f"done: best val mIoU {result['best_miou']:.4f} at epoch {result['best_epoch']} "
         f"({result['epochs']} epochs run); checkpoints in {workdir}"

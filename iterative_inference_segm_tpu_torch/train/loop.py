@@ -94,8 +94,13 @@ def batches(src):
 
 
 def to_device(images, labels, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """One batch to ``device`` as it is, but for uint8 labels (the packed u8
+    wire), which become int32 once they are there: the losses and metrics
+    take int32. uint8 images stay uint8; the step normalizes them."""
     x = torch.as_tensor(np.asarray(images)).to(device)
     y = torch.as_tensor(np.asarray(labels)).to(device)
+    if y.dtype == torch.uint8:
+        y = y.to(torch.int32)
     return x, y
 
 

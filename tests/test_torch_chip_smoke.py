@@ -1,7 +1,8 @@
-"""The CPU side of ``chip_smoke.py`` phases 3, 7 and 11: reading the build's
-register report and kernel names, and the edge cases of K3, K1/K2 and K4/K5
-it holds on the card (run here through the wrappers, which take the plain
-versions on the CPU)."""
+"""The CPU side of ``chip_smoke.py``: reading the build's register report
+and kernel names, and the edge cases of K3, K1/K2 and K4/K5 it holds on the
+card (phases 3, 7 and 11; run here through the wrappers, which take the
+plain versions on the CPU); the unpool tie cases (17); the check of the two
+wires, the device's idle share (18) and the inverse converters (20)."""
 
 import pytest
 
@@ -114,3 +115,111 @@ def test_unpool_tie_cases_pick_the_jax_positions_on_the_cpu():
         got = chip_smoke.max_unpool(g, pre)
         want = j_max_unpool(jnp.asarray(g.float().numpy(), jd), jnp.asarray(pre.float().numpy(), jd))
         np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)), err_msg=name)
+
+
+def test_hold_wires_takes_the_runtime_batches_and_catches_a_wrong_one(tmp_path):
+    """Phase 18's check of the two wires, on the CPU: the first batch of a
+    file the runtime reads on each wire agrees within WIRE_TOL on its real
+    frames with equal labels; the padded frames, the config's statistics in
+    place of the file's, a label moved, or the f32 batch on the u8 wire
+    fail."""
+    import dataclasses
+
+    import numpy as np
+
+    from iterative_inference_segm_tpu_torch.data.native_loader import NativeDataset, pack_dataset
+
+    rng = np.random.default_rng(0)
+    cfg = dataclasses.replace(chip_smoke.CAMVID, mean=(0.3, 0.5, 0.45), std=(0.2, 0.3, 0.25))
+    pack_dataset(tmp_path / "x.iist", rng.integers(0, 256, size=(5, 12, 16, 3), dtype=np.uint8),
+                 rng.integers(-1, 12, size=(5, 12, 16)), cfg)
+    with NativeDataset(tmp_path / "x.iist") as ds:
+        (f32,), (raw,) = list(ds.batches(8)), list(ds.batches(8, raw=True))
+        file_cfg = dataclasses.replace(chip_smoke.CAMVID, mean=ds.mean, std=ds.std)
+    assert chip_smoke.hold_wires(raw, f32, file_cfg, "cpu", 5) <= chip_smoke.WIRE_TOL
+    with pytest.raises(AssertionError, match="off the f32 wire"):  # the padding is not normalized alike
+        chip_smoke.hold_wires(raw, f32, file_cfg, "cpu", 8)
+    with pytest.raises(AssertionError, match="off the f32 wire"):
+        chip_smoke.hold_wires(raw, f32, chip_smoke.CAMVID, "cpu", 5)
+    moved = raw[1].copy()
+    moved[0, 0, 0] = (moved[0, 0, 0] + 1) % 11
+    with pytest.raises(AssertionError, match="labels differ"):
+        chip_smoke.hold_wires((raw[0], moved), f32, file_cfg, "cpu", 5)
+    with pytest.raises(AssertionError, match="wires"):
+        chip_smoke.hold_wires(f32, f32, file_cfg, "cpu", 5)
+
+
+def test_lasagne_arrays_invert_the_import_converters(tmp_path):
+    """Phase 20 writes the FCN's own weights as a Lasagne positional npz with
+    these inverse converters: both packages' imports give the weights back
+    bit for bit (the JAX import in its layout)."""
+    import jax
+    import numpy as np
+
+    from iterative_inference_segm_tpu.models import fcn8 as jfcn8
+    from iterative_inference_segm_tpu.utils import import_weights as jiw
+    from iterative_inference_segm_tpu_torch.utils.import_weights import import_lasagne_npz
+    from iterative_inference_segm_tpu_torch.utils.jax_bridge import params_from_jax, params_to_jax
+
+    fcn = params_from_jax(jfcn8.init_fcn8(jax.random.PRNGKey(3), n_classes=11, fc_channels=16))
+    gen = torch.Generator().manual_seed(0)
+    fcn = {k: {kk: torch.randn(t.shape, generator=gen) for kk, t in v.items()} for k, v in fcn.items()}
+    arrays = chip_smoke.lasagne_arrays(fcn)
+    assert len(arrays) == 2 * (len(jiw.FCN8_LASAGNE_ORDER) - 3) + 3  # deconvs carry no bias
+    assert arrays[26].shape == (16, 512 * 7 * 7) and arrays[28].shape == (16, 16)  # fc6, fc7 flat
+    np.savez(tmp_path / "ref.npz", *arrays)
+    template = params_from_jax(jfcn8.init_fcn8(jax.random.PRNGKey(4), n_classes=11, fc_channels=16))
+    back = import_lasagne_npz(tmp_path / "ref.npz", template, strict=True)
+    assert all(torch.equal(back[k][kk], t) for k, v in fcn.items() for kk, t in v.items())
+    jback = jiw.import_lasagne_npz(tmp_path / "ref.npz", params_to_jax(template), strict=True)
+    want = params_to_jax(fcn)
+    for k, v in want.items():
+        for kk, a in v.items():
+            np.testing.assert_array_equal(np.asarray(jback[k][kk]), a, err_msg=f"{k}/{kk}")
+
+
+def test_idle_share_merges_overlapping_device_spans_within_the_window():
+    spans = [(0.0, 1000.0), (500.0, 1500.0), (3000.0, 4000.0), (3100.0, 3200.0)]
+    busy, window, idle = chip_smoke.idle_share(spans)
+    assert (busy, window) == (2.5, 4.0) and idle == pytest.approx(0.375)
+    assert chip_smoke.idle_share([(10.0, 20.0)]) == (0.01, 0.01, 0.0)
+    # a window clips the spans: 1000..3500 holds 500 + 500 us of device time
+    assert chip_smoke.idle_share(spans, (1000.0, 3500.0)) == (1.0, 2.5, pytest.approx(0.6))
+    with pytest.raises(AssertionError, match="no device time"):
+        chip_smoke.idle_share([])
+    with pytest.raises(AssertionError, match="no device time"):
+        chip_smoke.idle_share(spans, (1600.0, 2900.0))
+
+
+def test_profiled_training_marks_each_batch_copy(monkeypatch):
+    """Phase 18 finds the train steps' window from the marked copies of the
+    trainer's batches; on the CPU the profiler marks them (it traces no
+    device time here, which the window's idle share refuses)."""
+    import dataclasses
+
+    from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
+    from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
+    from iterative_inference_segm_tpu_torch.train import train_dae as trainer
+    from iterative_inference_segm_tpu_torch.train.loop import TrainConfig
+
+    cfg = dataclasses.replace(chip_smoke.CAMVID, n_classes=3, void_label=3, train_crop=(32, 32))
+    seen = []
+    monkeypatch.setattr(chip_smoke, "idle_share", lambda spans, window=None: seen.append(window) or (0, 0, 0))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+
+    def epoch():
+        data = list(synthetic_batches(cfg=cfg, batch_size=2, num_batches=3, height=64, width=64))
+        return trainer.train_dae(
+            fcn_params=init_fcn8(torch.Generator().manual_seed(0), n_classes=3, fc_channels=8), dataset=cfg,
+            train_data=data[:2], val_data=data[2:], tcfg=TrainConfig(max_epochs=1), dae_depth=3,
+            dae_stem_pool=1, dae_widths=(4, 8, 8))
+
+    result, _, _ = chip_smoke.profiled_training(epoch, 2)
+    assert result["epochs"] == 1 and trainer.to_device is chip_smoke.to_device
+    assert seen[1] is None and seen[0][0] < seen[0][1]  # the train window, then the whole run
+    with pytest.raises(AssertionError, match="marked copies"):
+        chip_smoke.profiled_training(epoch, 3)
+
+
+def test_split_flags_name_pack_datasets_counts():
+    assert chip_smoke.split_flags(chip_smoke.EM_SPLITS) == ["--num-train", "24", "--num-val", "3", "--num-test", "3"]

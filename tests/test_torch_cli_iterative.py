@@ -4,15 +4,12 @@
 ``--dae-npz`` written by the JAX package: in f32 they print the same k=0
 and k=K lines (mIoU and accuracy to 4 decimals), with and without
 ``--search``, and with ``--arch mirror --dae-tied`` and ``--arch
-contextmod``. Flags the port does not have yet exit non-zero naming
-ROADMAP.md; ``--arch`` and ``--dae-tied``, refused until the mirror DAE
-and the context module were ported, are accepted.
+contextmod``. Flags the port does not have yet (sharded and pipeline
+serving) exit non-zero naming ROADMAP.md; the flags refused until their
+modules were ported are accepted, and ``--wire u8`` alone gets the JAX
+CLI's refusal. The data flags' seams are in ``test_torch_cli_data.py``.
 """
 
-import contextlib
-import importlib.util
-import io
-import pathlib
 
 import numpy as np
 import pytest
@@ -23,47 +20,15 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from iterative_inference_segm_tpu.models import fcn8 as jfcn8  # noqa: E402
 from iterative_inference_segm_tpu.models.registry import checkpoint_meta, init_score_template  # noqa: E402
 from iterative_inference_segm_tpu.utils.checkpoint import save_npz  # noqa: E402
+
 from iterative_inference_segm_tpu_torch.scripts import iterative_inference as tcli  # noqa: E402
-
-ROOT = pathlib.Path(__file__).resolve().parent.parent
-
+from torch_port_helpers import cli_lines, jax_script, write_cli_npz  # noqa: E402
 
 @pytest.fixture(scope="module")
 def jcli():
-    spec = importlib.util.spec_from_file_location("jax_iterative_inference", ROOT / "scripts" / "iterative_inference.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-def _write_npz(tmp, stem_pool, depth, tail):
-    """FCN-8 (fc 64) and DAE weights with random score, tail and transposed-
-    conv layers; the FCN's at scale 1.0 so that its softmax is decisive."""
-    rng = np.random.default_rng(0)
-
-    def randomize(tree, names, scale):
-        return {k: ({kk: jnp.asarray(rng.normal(size=v.shape).astype(np.float32) * scale) for kk, v in lv.items()}
-                    if k.startswith(names) else lv) for k, lv in tree.items()}
-
-    fcn = randomize(jfcn8.init_fcn8(jax.random.PRNGKey(0), n_classes=11, fc_channels=64), ("up", "score"), 1.0)
-    dae = init_score_template("dae", jax.random.PRNGKey(1), n_classes=11, h_taps=("pool4",), depth=depth,
-                              stem_pool=stem_pool, tail=tail)
-    dae = randomize(dae, ("up", "out", "score_input", "mix"), 0.3)
-    save_npz(tmp / "fcn.npz", fcn)
-    save_npz(tmp / "dae.npz", dae, meta=checkpoint_meta("dae", h_taps=("pool4",), depth=depth,
-                                                        stem_pool=stem_pool, tail=tail))
-    return ["--fcn-npz", str(tmp / "fcn.npz"), "--dae-npz", str(tmp / "dae.npz"), "--dae-depth", str(depth),
-            "--dae-stem-pool", str(stem_pool), "--dae-tail", tail]
-
-
-def _lines(main, argv):
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        assert main(argv) == 0
-    return buf.getvalue().splitlines()
+    return jax_script("iterative_inference")
 
 
 @pytest.mark.parametrize("extra", [
@@ -73,10 +38,10 @@ def _lines(main, argv):
 ])
 def test_cli_prints_what_the_jax_cli_prints(jcli, tmp_path, extra):
     half = "half" in extra
-    weights = _write_npz(tmp_path, 1 if half else 0, 3 if half else 4, "full")
+    weights = write_cli_npz(tmp_path, 1 if half else 0, 3 if half else 4, "full")
     argv = ["--synthetic", "--tiny", "--num-batches", "1", *weights, *extra]
-    want = _lines(jcli.main, argv)
-    got = _lines(tcli.main, [*argv, "--device", "cpu"])
+    want = cli_lines(jcli.main, argv)
+    got = cli_lines(tcli.main, [*argv, "--device", "cpu"])
     n = 3 if "--search" in extra else 2  # [val search line,] k=0 line, k=K line
     assert got[:n] == want[:n]
     assert got[n] == want[n] == "per-class IoU (k=0 -> k=K):"
@@ -88,13 +53,17 @@ def test_cli_prints_what_the_jax_cli_prints(jcli, tmp_path, extra):
 
 
 def test_cli_energy_sep_half_runs(tmp_path):
-    weights = _write_npz(tmp_path, 1, 3, "sep")
-    lines = _lines(tcli.main, ["--synthetic", "--tiny", "--num-batches", "1", "--device", "cpu", *weights,
+    weights = write_cli_npz(tmp_path, 1, 3, "sep")
+    lines = cli_lines(tcli.main, ["--synthetic", "--tiny", "--num-batches", "1", "--device", "cpu", *weights,
                                "--engine", "half", "--mode", "energy", "--num-steps", "2"])
     assert lines[1].startswith("K=2+rectify (half engine):")
 
 
-PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tied"])
+# refused until the mirror DAE and the context module, the data path
+# and utils/ were ported; only the item-12 flags are refused now
+PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tied"], ["--data-root", "x"],
+                ["--packed", "x"], ["--dae-mirror-npz", "x"], ["--fcn-reference-npz", "x"],
+                ["--fcn-flip-deconvs"], ["--dump-dir", "x"], ["--dump-trajectory"])
 
 
 @pytest.mark.parametrize("flags", [
@@ -103,18 +72,22 @@ PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tied"])
     ["--dae-tied"], ["--dae-mirror-npz", "x"], ["--fcn-reference-npz", "x"], ["--fcn-flip-deconvs"],
     ["--dump-dir", "x"], ["--dump-trajectory"],
 ])
-def test_cli_rejects_unported_flags_naming_the_roadmap(flags, capsys):
-    if flags in PORTED_FLAGS:  # refused until the mirror DAE and the context module were ported
+def test_cli_rejects_unported_flags_naming_the_roadmap(flags, capsys, jcli):
+    if flags in PORTED_FLAGS:
         args = tcli.parse_args(flags)
-        assert (args.arch, args.dae_tied) == ({"--arch": flags[-1]}.get(flags[0], "dae"), flags == ["--dae-tied"])
+        assert vars(args)[flags[0][2:].replace("-", "_")] == (flags[1] if len(flags) > 1 else True)
         return
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(flags)
     assert e.value.code == 2
     err = capsys.readouterr().err
-    assert "ROADMAP.md, Queue 1 item" in err
-    if flags[0] == "--dae-mirror-npz":
-        assert "item 10" in err
+    if flags == ["--wire", "u8"]:  # the JAX CLI's own refusal
+        assert "--wire u8 requires --packed" in err
+        with pytest.raises(SystemExit):
+            jcli.parse_args(flags)
+        assert "--wire u8 requires --packed" in capsys.readouterr().err
+        return
+    assert "ROADMAP.md, Queue 1 item 12" in err
 
 
 @pytest.mark.parametrize("flags,match", [
@@ -137,7 +110,7 @@ def test_cli_device_cuda_raises_without_a_card():
 def test_cli_with_the_other_score_networks_prints_what_the_jax_cli_prints(jcli, tmp_path, arch):
     """--arch mirror --dae-tied and --arch contextmod (on the input tap),
     both CLIs given the same JAX-written weights: the same k=0 and k=K lines."""
-    _write_npz(tmp_path, 0, 4, "full")  # the FCN; the DAE npz is replaced below
+    write_cli_npz(tmp_path, 0, 4, "full")  # the FCN; the DAE npz is replaced below
     name, tied = arch.split("_")[0], arch.endswith("_tied")
     taps = ("input",) if name == "contextmod" else ("pool4",)
     net = init_score_template(name, jax.random.PRNGKey(2), n_classes=11, h_taps=taps, depth=4, tied=tied)
@@ -148,6 +121,6 @@ def test_cli_with_the_other_score_networks_prints_what_the_jax_cli_prints(jcli, 
     argv = ["--synthetic", "--tiny", "--num-batches", "1", "--fcn-npz", str(tmp_path / "fcn.npz"),
             "--dae-npz", str(tmp_path / "net.npz"), "--arch", name, "--concat-h", *taps,
             *(["--dae-tied"] if tied else [])]
-    want = _lines(jcli.main, argv)
-    got = _lines(tcli.main, [*argv, "--device", "cpu"])
+    want = cli_lines(jcli.main, argv)
+    got = cli_lines(tcli.main, [*argv, "--device", "cpu"])
     assert got[:2] == want[:2] and got[1].startswith("step 5 (refined):")

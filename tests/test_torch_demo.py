@@ -21,9 +21,11 @@ import jax  # noqa: E402
 from iterative_inference_segm_tpu.models import fcn8 as jfcn8  # noqa: E402
 from iterative_inference_segm_tpu.utils import checkpoint as jckpt  # noqa: E402
 from iterative_inference_segm_tpu_torch.scripts import demo_synthetic as demo  # noqa: E402
+from iterative_inference_segm_tpu_torch.scripts import pack_dataset as pack  # noqa: E402
 from iterative_inference_segm_tpu_torch.scripts import train_fcn8 as fcn_cli  # noqa: E402
 from iterative_inference_segm_tpu_torch.tools import seed_replication as seeds  # noqa: E402
 from iterative_inference_segm_tpu_torch.utils import checkpoint as tckpt  # noqa: E402
+from torch_port_helpers import lasagne_checkpoint, lasagne_positional, write_camvid_tree  # noqa: E402
 
 TINY_DEMO = ["--height", "48", "--width", "64", "--fc-channels", "16", "--batch-size", "2",
              "--train-batches", "2", "--epochs-fcn", "1", "--epochs-dae", "1", "--k-max", "2",
@@ -43,13 +45,16 @@ CASES = {
     "demo_mirror_energy": ("demo", ["--json", "--arch", "mirror", "--dae-tied", "--mode", "energy"], None),
     "demo_contextmod_bf16": ("demo", ["--json", "--arch", "contextmod", "--bf16"], None),
     "seed_replication": ("seeds", [], None),
-    # refusals: the flags whose paths are not ported name their item
-    "fcn8_packed": ("fcn8", ["--packed", "x"], "item 8"),
-    "fcn8_wire": ("fcn8", ["--wire", "u8"], "item 8"),
-    "fcn8_data_root": ("fcn8", ["--data-root", "x"], "item 8"),
+    # the data and utils flags (refused until items 8 and 10 were ported);
+    # {name} is a file or directory the test writes
+    "fcn8_packed": ("fcn8", ["--max-epochs", "1", "--packed", "{packed}"], None),
+    "fcn8_data_root": ("fcn8", ["--max-epochs", "1", "--data-root", "{root}"], None),
+    "fcn8_profile_dir": ("fcn8", ["--max-epochs", "1", "--profile-dir", "{trace}"], None),
+    "fcn8_reference_npz": ("fcn8", ["--max-epochs", "1", "--load-reference-npz", "{ref}"], None),
+    # refusals: a flag whose path is not ported names its item; --wire u8
+    # without --packed gets the JAX CLI's refusal
+    "fcn8_wire": ("fcn8", ["--wire", "u8"], "--wire u8 requires --packed"),
     "fcn8_devices": ("fcn8", ["--devices", "2"], "item 12"),
-    "fcn8_profile_dir": ("fcn8", ["--profile-dir", "x"], "item 10"),
-    "fcn8_reference_npz": ("fcn8", ["--load-reference-npz", "x"], "item 10"),
     # and the JAX demo's own validity checks
     "demo_half_no_stem": ("demo", ["--engine", "half"], "--engine half requires --dae-stem-pool >= 1"),
     "demo_half_mirror": ("demo", ["--engine", "half", "--dae-stem-pool", "1", "--arch", "mirror"],
@@ -64,6 +69,19 @@ def _stdout(fn, argv):
     return buf.getvalue().splitlines()
 
 
+def _fcn8_inputs(case, tmp):
+    """The files a case's flags name, at the tiny size (96x128, fc 64)."""
+    if case == "fcn8_packed":
+        pack.main(["--synthetic", "--out", str(tmp / "packed"), "--num-train", "4", "--num-val", "2",
+                   "--num-test", "1", "--height", "96", "--width", "128"])
+    elif case == "fcn8_data_root":
+        write_camvid_tree(tmp / "root", (96, 128), {"train": 4, "val": 2})
+    elif case == "fcn8_reference_npz":  # a reference-era positional checkpoint of the tiny FCN-8
+        jparams = jfcn8.init_fcn8(jax.random.PRNGKey(0), n_classes=11, fc_channels=64)
+        np.savez(tmp / "ref.npz", *lasagne_positional(lasagne_checkpoint(jparams, 3)))
+    return {"packed": tmp / "packed", "root": tmp / "root", "trace": tmp / "trace", "ref": tmp / "ref.npz"}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 def test_twin(case, tmp_path, capsys):
     tool, flags, refusal = CASES[case]
@@ -71,12 +89,17 @@ def test_twin(case, tmp_path, capsys):
         with pytest.raises(SystemExit) as e:
             (fcn_cli.main if tool == "fcn8" else demo.main)(flags)
         if tool == "fcn8":  # argparse: exit 2, the reason on stderr
-            assert e.value.code == 2 and f"ROADMAP.md, Queue 1 {refusal}" in capsys.readouterr().err
+            why = f"ROADMAP.md, Queue 1 {refusal}" if refusal.startswith("item") else refusal
+            assert e.value.code == 2 and why in capsys.readouterr().err
         else:
             assert refusal in str(e.value.code)
         return
     if tool == "fcn8":
+        inputs = _fcn8_inputs(case, tmp_path)
+        flags = [f.format(**inputs) for f in flags]
         argv = [*TINY_FCN, "--workdir", str(tmp_path / "wd"), *flags]
+        if case == "fcn8_data_root":  # --synthetic would take precedence, as in JAX
+            argv.remove("--synthetic")
         if case == "fcn8_load_npz":  # a JAX-written FCN-8 at the tiny width
             jckpt.save_npz(tmp_path / "j.npz", jfcn8.init_fcn8(jax.random.PRNGKey(3), n_classes=11, fc_channels=64))
             argv += ["--load-npz", str(tmp_path / "j.npz")]
@@ -89,6 +112,9 @@ def test_twin(case, tmp_path, capsys):
         assert tckpt.latest_step(wd / "ckpt") == n - 1
         assert jckpt.read_npz_meta(wd / "best_fcn8.npz") == {"arch": "fcn8", "fc_channels": 64}
         jckpt.load_npz(wd / "best_fcn8.npz", jfcn8.init_fcn8(jax.random.PRNGKey(0), n_classes=11, fc_channels=64))
+        if case == "fcn8_profile_dir":  # a Chrome trace of the run, with the train step's convolutions
+            trace = (tmp_path / "trace" / "trace.json").read_text()
+            assert '"traceEvents"' in trace and "conv" in trace
         return
     if tool == "seeds":
         hist = tmp_path / "h.jsonl"

@@ -70,7 +70,11 @@ def test_dataset_config_and_normalize_match_jax():
     assert set(tcfg.DATASET_CONFIGS) == set(jcfg.DATASET_CONFIGS)
     for name, cfg in tcfg.DATASET_CONFIGS.items():
         for f in dataclasses.fields(cfg):
-            assert getattr(cfg, f.name) == getattr(jcfg.DATASET_CONFIGS[name], f.name), (name, f.name)
+            got, want = getattr(cfg, f.name), getattr(jcfg.DATASET_CONFIGS[name], f.name)
+            if f.name == "palette":
+                assert got.dtype == want.dtype == np.uint8 and np.array_equal(got, want), name
+            else:
+                assert got == want, (name, f.name)
     assert tcfg.CAMVID.train_crop == (224, 224) and (tcfg.CAMVID.height, tcfg.CAMVID.width) == (360, 480)
     x = _images() * 255.0
     for scale in (1.0, 255.0):
