@@ -9,7 +9,9 @@ modes (and the 'sep'-tail flagship), runs the (eps, K) searches and the
 ``iterative_inference`` CLI, trains FCN-8 at full width, runs the synthetic
 accuracy demo, serves the mirror DAE and the context module, drives the
 data path (packed files on both wires, device prefetch, an EM dataset of two
-classes) and the weight import and profiling utilities.
+classes) and the weight import and profiling utilities, then the parallel
+layer: data-parallel training and serving, fc6/fc7 tensor parallelism and
+the pipeline, in ranks that share the card.
 
 Run from the repository root with no arguments:
 
@@ -124,9 +126,38 @@ Phases:
                 with --fcn-reference-npz (the lines of --fcn-npz); one short
                 train_fcn8 twin epoch with --profile-dir, whose trace holds
                 CUDA kernel events
-Phases 4, 10, 12, 13, 16-20 also assert that no refine_tail launch of
-theirs took the kernel's strided staging. Every phase asserts; any failure raises
-and the exit code is non-zero. The line before the last is the kernel
+Phases 21-24 run the parallel layer through parallel/launch.py in ranks
+that share the one card over gloo (NCCL takes one card a rank); each
+reference runs in rank 0, in one process, on the card; every time printed
+is that of ranks sharing one card, not a multi-card figure:
+21. dp       -- one train_dae step at full width (batch 32 split 16 + 16,
+                crop 224, the CLI's DAE) on 2 ranks, f32 (gt regime, K1) and
+                bf16 (natural, K2), held to the shards' averaged gradients
+                and one Adam step (f32: loss and every param to 1e-5 of its
+                leaf's largest; bf16: the loss to 1e-4); the f32 step again
+                on 1 rank over NCCL, held to the plain single-device step;
+                one train_fcn8 step (fc 4096, batch 10 split 5 + 5, own
+                crops and masks a rank) held as phase 15 holds a step
+22. dpserve  -- Predictor(mesh=...) at batch 8 on 2 ranks, 12 images (the
+                last chunk short), half engine bf16 (argmax agreement with
+                the single-device Predictor >= 0.999) and general f32
+                (probabilities to 1e-5, labels equal but at near-ties)
+23. tp       -- FCN-8 at fc 4096 on a ('model',) mesh of 2: the f32 forward
+                and one f32 train step with given masks against the
+                replicated run (logits, loss, gradients per leaf in norm to
+                1e-5); each rank holds half of fc6/fc7 and their moments
+24. pp       -- the flagship at batch 8 through make_pp_flagship: 2 stages
+                (half bf16 at M = 2 and 4, general f32 with the DAE and the
+                mirror DAE, Predictor(pp_mesh=...)), 3 stages (half, general)
+                and DP x PP on ('data', 'stage') of (2, 2), held to the
+                one-process engine on the same chunks (f32 to 1e-5, bf16 by
+                argmax agreement >= 0.999), beside the agreement with one
+                run of the whole batch; refine_tail launches only in the
+                refinement stage
+Each rank counts its own kernel launches; the kernel report adds them.
+Phases 4, 10, 12, 13, 16-20, 22 and 24 also assert that no refine_tail launch of
+theirs took the kernel's strided staging. Every phase asserts; any failure
+(in any rank) raises and the exit code is non-zero. The line before the last is the kernel
 report (JSON: each kernel's launches on its path, error, times, bound and
 what sets it), the last line the device report (JSON).
 """
@@ -154,7 +185,7 @@ from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID, DATA
 from iterative_inference_segm_tpu_torch.data.loaders import epoch_reshuffled
 from iterative_inference_segm_tpu_torch.data import native_loader
 from iterative_inference_segm_tpu_torch.data.native_loader import NativeDataset
-from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
+from iterative_inference_segm_tpu_torch.data.pipeline import draw_crop_and_flip, normalize_image
 from iterative_inference_segm_tpu_torch.data.prefetch import device_prefetch
 from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
 from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn
@@ -162,7 +193,7 @@ from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner,
 from iterative_inference_segm_tpu_torch.inference.predictor import Predictor
 from iterative_inference_segm_tpu_torch.inference.search import grid_search_eps_k, grid_search_eps_k_half
 from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_logits, init_dae
-from iterative_inference_segm_tpu_torch.models.fcn8 import dropout_masks, fcn8_apply, init_fcn8
+from iterative_inference_segm_tpu_torch.models.fcn8 import dropout_masks, fcn8_apply, fcn8_logits, init_fcn8
 from iterative_inference_segm_tpu_torch.models.registry import init_score_template, score_kwargs, score_logits_fn
 from iterative_inference_segm_tpu_torch.ops import _build
 from iterative_inference_segm_tpu_torch.ops import corruption_kernel as ck
@@ -2071,6 +2102,449 @@ def run_utils_phase(dev, fcn, root):
     return refine_tail.launches
 
 
+# ---------------------------------------------------------------- the parallel layer (phases 21-24)
+#
+# The machine has one card, so the phases' ranks share cuda:0 and talk over
+# gloo (NCCL refuses two ranks on one card; parallel/comm.py stages a CUDA
+# tensor through host memory on gloo). NCCL itself runs at world size 1.
+# Every time printed is that of ranks sharing one card: not a multi-card
+# figure. Each reference runs in rank 0, in one process, on the same card.
+
+PAR_BATCH = 32  # the DP DAE step: 16 + 16 on 2 ranks
+PAR_FCN_BATCH = 10  # the DP FCN-8 step: the CLI's batch, 5 + 5
+PAR_SERVE_IMAGES = 12  # 2 chunks of 8, the last one short
+PAR_F32_TOL = 1e-5  # f32 against the one-process reference on the same card
+
+
+def _leaves_of(params):
+    return [t for v in params.values() for t in v.values()]
+
+
+def _clone(params):
+    return {k: {kk: t.detach().clone() for kk, t in v.items()} for k, v in params.items()}
+
+
+def _leaf_rel(a: dict, b: dict) -> tuple[float, str]:
+    """The largest max|a - b| / max|b| over the leaves, and its leaf ('all'
+    when every leaf is equal)."""
+    worst, name = 0.0, "all"
+    for k, v in b.items():
+        for kk, t in v.items():
+            rel = (a[k][kk] - t).abs().max().item() / max(t.abs().max().item(), 1e-30)
+            if rel > worst:
+                worst, name = rel, f"{k}/{kk}"
+    return worst, name
+
+
+def _rank():
+    return torch.distributed.get_rank()
+
+
+def par_cases(mesh, device, cases):
+    """Each rank: run ``cases`` ([(name, function, kwargs)]) in order; each
+    result gets the case's wall time in this rank."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for name, fn, kw in cases:
+        t0 = time.perf_counter()
+        out[name] = globals()[fn](mesh, device, **kw)
+        torch.cuda.synchronize()
+        out[name]["secs"] = time.perf_counter() - t0
+    return out
+
+
+def par_dae_step(mesh, device, dtype, from_gt, seed):
+    """One DP train_dae step at full width (the CLI's DAE: depth 4, no stem
+    pool; crop 224) on this rank's shard of a batch of PAR_BATCH, K1 (gt) or
+    K2 (natural) launched by the step; rank 0 then runs the reference: the
+    shards' single-device gradients, averaged by hand, one Adam step."""
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    torch.backends.cudnn.deterministic = True
+    n, r = axis_size(mesh, "data"), axis_index(mesh, "data")
+    local = PAR_BATCH // n
+    fcn, _ = full_width_params(device)
+    init = init_dae(torch.Generator().manual_seed(12), n_classes=N_CLASSES, h_specs={"pool4": DAE_H_CHANNELS["pool4"]},
+                    depth=4, stem_pool=0, device=device)
+    images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=PAR_BATCH, num_batches=1, seed=seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    rands = [draw_step_randomness(gen, batch=local, hw=(H, W), crop=CROP, p_gt=float(from_gt)) for _ in range(n)]
+    shards = [(torch.from_numpy(images[s * local:(s + 1) * local]).to(device),
+               torch.from_numpy(labels[s * local:(s + 1) * local]).to(device)) for s in range(n)]
+    tcfg = TrainConfig(compute_dtype=getattr(torch, dtype))
+    kw = dict(h_taps=("pool4",), sigma=SIGMA, from_gt=from_gt, dae_depth=4, corruption_impl="kernel")
+    dae = _clone(init)
+    step, _ = make_dae_train_step(CAMVID, tcfg, make_optimizer(tcfg, dae), mesh=mesh, **kw)
+    ck.corrupt_onehot.launches = ck.corrupt_probs.launches = 0
+    t0 = time.perf_counter()
+    loss = float(step(dae, fcn, *shards[r], rands[r]))
+    out = {"loss": loss, "step_s": time.perf_counter() - t0, "k1": ck.corrupt_onehot.launches,
+           "k2": ck.corrupt_probs.launches}
+    if _rank() == 0:
+        ref = _clone(init)
+        ropt = make_optimizer(tcfg, ref)
+        rstep, _ = make_dae_train_step(CAMVID, tcfg, ropt, **kw)
+        if n == 1:  # the plain single-device step
+            ref_loss = float(rstep(ref, fcn, *shards[0], rands[0]))
+        else:
+            st, grads, losses = rstep.stages, [], []
+            for s in range(n):
+                xc, yc = st.prepare(*shards[s], rands[s])
+                probs, h = st.features(fcn, xc)
+                with torch.no_grad():
+                    y_tilde = st.corrupt(yc, probs, rands[s])
+                ropt.zero_grad(set_to_none=True)
+                value, _ = st.loss(ref, y_tilde, h, yc)
+                value.backward()
+                grads.append([t.grad.clone() for t in _leaves_of(ref)])
+                losses.append(float(value.detach()))
+            for i, t in enumerate(_leaves_of(ref)):
+                t.grad = sum(g[i] for g in grads) / n
+            ropt.step()
+            ref_loss = sum(losses) / n
+        out["loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+        out["param_rel"], out["param_leaf"] = _leaf_rel(dae, ref)
+        out["moved"] = max((a - b).abs().max().item() for a, b in zip(_leaves_of(dae), _leaves_of(init)))
+    return out
+
+
+def par_fcn_step(mesh, device):
+    """One DP train_fcn8 step at full width (fc 4096, crop 224, f32) on this
+    rank's shard of the CLI's batch, each rank with its own crops and
+    dropout masks; rank 0 holds it to the shards' averaged single-device
+    gradients, as phase 15 holds a step: the loss, Adam's first moment per
+    leaf in norm, the updated params where Adam's step is set."""
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_index, axis_size
+
+    torch.backends.cudnn.deterministic = True
+    n, r = axis_size(mesh, "data"), axis_index(mesh, "data")
+    local = PAR_FCN_BATCH // n
+    images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=PAR_FCN_BATCH, num_batches=1, seed=31))
+    gen = torch.Generator().manual_seed(32)
+    rands = []
+    for _ in range(n):
+        crop = draw_crop_and_flip(gen, local, (H, W), CROP)
+        masks = dropout_masks(gen, (local, CROP[0] // 32, CROP[1] // 32, 4096))
+        rands.append(FCNStepRandomness(dropout=tuple(m.to(device) for m in masks), crop=crop))
+    shards = [(torch.from_numpy(images[s * local:(s + 1) * local]).to(device),
+               torch.from_numpy(labels[s * local:(s + 1) * local]).to(device)) for s in range(n)]
+    init = init_fcn8(torch.Generator().manual_seed(25), n_classes=N_CLASSES, fc_channels=4096, device=device)
+    tcfg = TrainConfig()
+    params = _clone(init)
+    opt = make_optimizer(tcfg, params)
+    step, _ = make_fcn8_train_step(CAMVID, tcfg, opt, mesh=mesh)
+    t0 = time.perf_counter()
+    loss = float(step(params, *shards[r], rands[r]))
+    out = {"loss": loss, "step_s": time.perf_counter() - t0}
+    if _rank() == 0:
+        ref = _clone(init)
+        ropt = make_optimizer(tcfg, ref)
+        rstep, _ = make_fcn8_train_step(CAMVID, tcfg, ropt)
+        st, grads, losses = rstep.stages, [], []
+        for s in range(n):
+            xc, yc = st.prepare(*shards[s], rands[s])
+            ropt.zero_grad(set_to_none=True)
+            value = st.loss(ref, xc, yc, rands[s].dropout)
+            value.backward()
+            grads.append([t.grad.clone() for t in _leaves_of(ref)])
+            losses.append(float(value.detach()))
+        for i, t in enumerate(_leaves_of(ref)):
+            t.grad = sum(g[i] for g in grads) / n
+        ropt.step()
+        ref_loss = sum(losses) / n
+        moments, par, unset = {}, {}, 0
+        for (name, lv), (_, rv) in zip(params.items(), ref.items()):
+            for kk, t in lv.items():
+                mu, mu_ref = opt.state[t]["exp_avg"], ropt.state[rv[kk]]["exp_avg"]
+                moments[f"{name}/{kk}"] = _norm_rel(mu, mu_ref)
+                step_set = ((torch.sign(mu) == torch.sign(mu_ref)) & (mu.abs() >= 0.1 * FCN_PARITY_MIN_GRAD)
+                            & (mu_ref.abs() >= 0.1 * FCN_PARITY_MIN_GRAD))
+                unset += int((~step_set).sum())
+                d = (t - rv[kk]).abs()[step_set]
+                par[f"{name}/{kk}"] = d.max().item() / rv[kk].abs().max().item() if d.numel() else 0.0
+        out.update(loss_rel=abs(loss - ref_loss) / abs(ref_loss), moment_rel=max(moments.values()),
+                   moment_leaf=max(moments, key=moments.get), param_rel=max(par.values()), unset=unset,
+                   total=sum(t.numel() for t in _leaves_of(params)))
+    return out
+
+
+def par_serve(mesh, device, engine):
+    """Predictor(mesh=...) at batch 8 over PAR_SERVE_IMAGES images (the half
+    engine in bf16, the general in f32); rank 0 holds the gathered answer to
+    the single-device Predictor at batch 8."""
+    fcn, dae = full_width_params(device)
+    dtype = torch.bfloat16 if engine == "half" else torch.float32
+    if engine == "general":
+        dae = general_params(device)
+    kw = dict(engine=engine, batch_size=BATCH, compute_dtype=dtype, num_steps=K_STEPS, eps=EPS,
+              dae_kwargs={"depth": 3 if engine == "half" else 4, "encoder": "pool"})
+    images = np.random.default_rng(41).random((PAR_SERVE_IMAGES, H, W, 3), dtype=np.float32)
+    reset_tail_counts()
+    t0 = time.perf_counter()
+    labels, probs = Predictor(fcn, dae, device=device, mesh=mesh, **kw).predict(images, return_probs=True)
+    torch.cuda.synchronize()
+    out = {"serve_s": time.perf_counter() - t0, "launches": refine_tail.launches,
+           "strided": refine_tail.strided_launches}
+    _check_answer(labels, probs, PAR_SERVE_IMAGES)
+    if _rank() == 0:
+        want_l, want_p = Predictor(fcn, dae, device=device, **kw).predict(images, return_probs=True)
+        out["agree"] = float((labels == want_l).mean())
+        out["max_abs"] = float(np.abs(probs - want_p).max())
+        top2 = np.sort(want_p, axis=-1)[..., -2:]
+        near_tie = (top2[..., 1] - top2[..., 0]) <= PAR_F32_TOL
+        out["off_beyond_ties"] = int(((labels != want_l) & ~near_tie).sum())
+    return out
+
+
+def par_tp(mesh, device):
+    """FCN-8 at fc 4096 on a ('model',) mesh of 2: the f32 forward and one
+    f32 train step with given dropout masks, each rank holding half of
+    fc6/fc7 (and so of Adam's moments for them); every rank holds its run to
+    the replicated run in its own process."""
+    from iterative_inference_segm_tpu_torch.ops.losses import masked_crossentropy
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group, make_mesh
+    from iterative_inference_segm_tpu_torch.parallel.tp import shard_params_tp, tp_shardings
+
+    tmesh = make_mesh(("model",), (2,), device_type="cuda")
+    group = axis_group(tmesh, "model")
+    whole = init_fcn8(torch.Generator().manual_seed(25), n_classes=N_CLASSES, fc_channels=4096, device=device)
+    images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=2, num_batches=1, seed=33))
+    x = normalize_image(torch.from_numpy(images), CAMVID).to(device)
+    y = torch.from_numpy(labels).to(device)
+    masks = tuple(m.to(device) for m in dropout_masks(torch.Generator().manual_seed(34), (2, 12, 15, 4096)))
+    specs = tp_shardings(whole, tmesh)
+    tcfg = TrainConfig()
+
+    def run(params, model_group):
+        opt = make_optimizer(tcfg, params)
+        with torch.no_grad():
+            logits = fcn8_logits(params, x, model_group=model_group)
+        t0 = time.perf_counter()
+        loss = masked_crossentropy(fcn8_logits(params, x, dropout=masks, model_group=model_group), y,
+                                   n_classes=N_CLASSES)
+        loss.backward()
+        grads = {k: {kk: t.grad.clone() for kk, t in v.items()} for k, v in params.items()}
+        opt.step()
+        torch.cuda.synchronize()
+        return logits, float(loss.detach()), grads, opt, time.perf_counter() - t0
+
+    local = shard_params_tp(_clone(whole), tmesh)
+    logits, loss, grads, opt, step_s = run(local, group)
+    r_logits, r_loss, r_grads, _, ref_s = run(_clone(whole), None)
+    r_grads = {k: {kk: (specs[k][kk].local(t) if k in ("fc6", "fc7") else t) for kk, t in v.items()}
+               for k, v in r_grads.items()}
+    grad_norm = {f"{k}/{kk}": _norm_rel(grads[k][kk], t) for k, v in r_grads.items() for kk, t in v.items()}
+    held = sum(t.numel() * t.element_size() for name in ("fc6", "fc7") for t in local[name].values())
+    moments = sum(opt.state[t][m].numel() * 4 for name in ("fc6", "fc7") for t in local[name].values()
+                  for m in ("exp_avg", "exp_avg_sq"))
+    whole_bytes = sum(t.numel() * t.element_size() for name in ("fc6", "fc7") for t in whole[name].values())
+    return {"logits_rel": (logits - r_logits).abs().max().item() / r_logits.abs().max().item(),
+            "loss_rel": abs(loss - r_loss) / abs(r_loss), "grad_rel": max(grad_norm.values()),
+            "grad_leaf": max(grad_norm, key=grad_norm.get), "held": held, "moments": moments,
+            "whole": whole_bytes, "step_s": step_s, "ref_s": ref_s,
+            "shapes": {k: tuple(local[k]["w"].shape) for k in ("fc6", "fc7")}}
+
+
+def par_pp(mesh, device, engine, arch, microbatches, names=None, sizes=None, predictor=False):
+    """The flagship through make_pp_flagship (or Predictor(pp_mesh=...)) at
+    full width, batch 8. Rank 0 holds y_K (the labels) to the one-process
+    flagship_forward_fn or general engine (Predictor) run on the same chunks
+    as the ranks run (each microbatch's 'data' shard): f32 at PAR_F32_TOL,
+    bf16 by argmax agreement; and reports the agreement with one run of the
+    whole batch, where cuDNN may pick other algorithms. Each rank's
+    refine_tail launches are counted."""
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_index, axis_size, has_axis, make_mesh
+    from iterative_inference_segm_tpu_torch.parallel.pp import make_pp_flagship, merge_microbatches, split_microbatches
+
+    pmesh = make_mesh(names, sizes, device_type="cuda") if names else mesh
+    fcn, dae = full_width_params(device)
+    half = engine == "half"
+    dtype = torch.bfloat16 if half else torch.float32
+    if not half:
+        dae = general_params(device) if arch == "dae" else arch_params(arch, False, device)[0]
+    depth = 3 if half else 4
+    kw = dict(eps=EPS, num_steps=K_STEPS, depth=depth, compute_dtype=dtype, engine=engine, dae_arch=arch)
+    batch_axis = "data" if has_axis(pmesh, "data") else None
+    chunk = BATCH // microbatches // (axis_size(pmesh, "data") if batch_axis else 1)
+    images = np.random.default_rng(42).random((BATCH, H, W, 3), dtype=np.float32)
+    x = normalize_image(torch.from_numpy(images), CAMVID).to(device)
+    pred_kw = dict(engine=engine, compute_dtype=dtype, num_steps=K_STEPS, eps=EPS,
+                   dae_kwargs={"depth": depth, "encoder": "pool"})
+    many = np.random.default_rng(43).random((PAR_SERVE_IMAGES, H, W, 3), dtype=np.float32)
+    reset_tail_counts()
+    t0 = time.perf_counter()
+    if predictor:
+        labels, probs = Predictor(fcn, dae, device=device, pp_mesh=pmesh, pp_microbatches=microbatches,
+                                  batch_size=BATCH, **pred_kw).predict(many, return_probs=True)
+    else:
+        fwd = make_pp_flagship(pmesh, batch_axis=batch_axis, **kw)
+        with torch.no_grad():
+            _, yk = fwd(fcn, dae, split_microbatches(x, microbatches))
+        yk = merge_microbatches(yk).float()
+    torch.cuda.synchronize()
+    out = {"pp_s": time.perf_counter() - t0, "launches": refine_tail.launches,
+           "strided": refine_tail.strided_launches, "stage": axis_index(pmesh, "stage")}
+    if _rank() != 0:
+        return out
+    if predictor:
+        _check_answer(labels, probs, PAR_SERVE_IMAGES)
+        out["agree"] = float((labels == Predictor(fcn, dae, device=device, batch_size=chunk, **pred_kw)
+                              .predict(many)).mean())
+        out["agree_whole"] = float((labels == Predictor(fcn, dae, device=device, batch_size=BATCH, **pred_kw)
+                                    .predict(many)).mean())
+        return out
+
+    def one_process(xx):
+        with torch.no_grad():
+            if half:
+                return flagship_forward_fn(num_steps=K_STEPS, eps=EPS, depth=3, compute_dtype=dtype)(fcn, dae, xx)[1]
+            logits = score_logits_fn(arch)
+            y0, h = fcn8_apply(fcn, xx, return_features=("pool4",), compute_dtype=dtype)
+            return refinement_scan(lambda y: logits(dae, y, h, compute_dtype=dtype, **score_kwargs(arch, depth=4)),
+                                   y0, eps=EPS, num_steps=K_STEPS)
+
+    ref = torch.cat([one_process(x[i:i + chunk]) for i in range(0, BATCH, chunk)]).float()
+    d = (yk - ref).abs()
+    out.update(max_abs=d.max().item(), beyond=(d > PAR_F32_TOL).float().mean().item(),
+               agree=(yk.argmax(-1) == ref.argmax(-1)).float().mean().item(),
+               agree_whole=(yk.argmax(-1) == one_process(x).float().argmax(-1)).float().mean().item())
+    return out
+
+
+def run_parallel_phases(smi):
+    """Phases 21-24 in four launches (2 ranks, 1 rank over NCCL, 3 ranks, 4
+    ranks); returns the launches each kernel made in the ranks, summed."""
+    from iterative_inference_segm_tpu_torch.parallel.launch import launch_ranks
+    from iterative_inference_segm_tpu_torch.parallel.mesh import MeshSpec
+
+    def run(cases, names, sizes, device="cuda:0", backend="gloo"):
+        t0 = time.perf_counter()
+        res = launch_ranks(par_cases, cases, mesh=MeshSpec(names, sizes), device=device, backend=backend,
+                           kernels=("refine_tail", "corruption"))
+        return res, time.perf_counter() - t0
+
+    stage2 = dict(names=("stage",), sizes=(2,))
+    t_all = time.perf_counter()
+    r2, w2 = run([
+        ("dae_f32", "par_dae_step", {"dtype": "float32", "from_gt": True, "seed": 35}),
+        ("dae_bf16", "par_dae_step", {"dtype": "bfloat16", "from_gt": False, "seed": 36}),
+        ("fcn", "par_fcn_step", {}),
+        ("serve_half", "par_serve", {"engine": "half"}),
+        ("serve_general", "par_serve", {"engine": "general"}),
+        ("tp", "par_tp", {}),
+        ("pp_half_m2", "par_pp", {"engine": "half", "arch": "dae", "microbatches": 2, **stage2}),
+        ("pp_half_m4", "par_pp", {"engine": "half", "arch": "dae", "microbatches": 4, **stage2}),
+        ("pp_general", "par_pp", {"engine": "general", "arch": "dae", "microbatches": 2, **stage2}),
+        ("pp_mirror", "par_pp", {"engine": "general", "arch": "mirror", "microbatches": 4, **stage2}),
+        ("pp_predictor", "par_pp", {"engine": "half", "arch": "dae", "microbatches": 2, "predictor": True,
+                                    **stage2}),
+    ], ("data",), (2,))
+    r1, w1 = run([("dae_nccl", "par_dae_step", {"dtype": "float32", "from_gt": True, "seed": 35})], ("data",), (1,),
+                 device="cuda", backend=None)
+    r3, w3 = run([("pp3_half", "par_pp", {"engine": "half", "arch": "dae", "microbatches": 4}),
+                  ("pp3_general", "par_pp", {"engine": "general", "arch": "dae", "microbatches": 2})],
+                 ("stage",), (3,))
+    r4, w4 = run([("dpxpp", "par_pp", {"engine": "half", "arch": "dae", "microbatches": 2})], ("data", "stage"), (2, 2))
+    note = f"ranks sharing one card ({smi}), not a multi-card figure"
+    secs = lambda res, *names: sum(res[0][n]["secs"] for n in names)  # noqa: E731
+    launches = {"refine_tail": 0, "corrupt_onehot": 0, "corrupt_probs": 0}
+
+    # 21: DP training
+    for name, res, want in (("dae_f32", r2, (1, 0)), ("dae_bf16", r2, (0, 1)), ("dae_nccl", r1, (1, 0))):
+        got = [(r[name]["k1"], r[name]["k2"]) for r in res]
+        if any(g != want for g in got):
+            raise AssertionError(f"{name}: K1/K2 launched {got} in the ranks; expected {want} each")
+        launches["corrupt_onehot"] += sum(g[0] for g in got)
+        launches["corrupt_probs"] += sum(g[1] for g in got)
+        r0 = res[0][name]
+        tol = TRAIN_PARITY_LOSS_TOL if name == "dae_bf16" else PAR_F32_TOL
+        bad = r0["loss_rel"] > tol or (name != "dae_bf16" and not r0["param_rel"] <= PAR_F32_TOL) or r0["moved"] == 0
+        phase("dp", f"train_dae step {name} ({len(res)} rank{'s' if len(res) > 1 else ''}, "
+              f"{'nccl' if name == 'dae_nccl' else 'gloo'}), batch {PAR_BATCH} at {H}x{W} cropped to {CROP[0]}, "
+              f"the CLI's DAE: loss {r0['loss']:.7f}, rel to the one-process reference {r0['loss_rel']:.2e} "
+              f"(limit {tol}); params after the step, worst leaf {r0['param_rel']:.2e} of its largest "
+              f"({r0['param_leaf']}); K1/K2 per rank {want}; step {r0['step_s']:.2f} s, case {r0['secs']:.1f} s")
+        if bad:
+            raise AssertionError(f"{name}: DP step beyond the reference")
+    f = r2[0]["fcn"]
+    phase("dp", f"train_fcn8 step (2 ranks), batch {PAR_FCN_BATCH} crop {CROP[0]}, fc 4096, f32, own crops and masks "
+          f"a rank: loss rel {f['loss_rel']:.2e}; Adam exp_avg per leaf in norm, worst {f['moment_rel']:.2e} "
+          f"({f['moment_leaf']}); params where the step is set, worst {f['param_rel']:.2e}; {f['unset']} of "
+          f"{f['total']} entries left out; step {f['step_s']:.2f} s")
+    if not (f["loss_rel"] <= PAR_F32_TOL and f["moment_rel"] <= FCN_PARITY_GRAD_TOL and f["param_rel"] <= PAR_F32_TOL):
+        raise AssertionError("DP FCN-8 step beyond the reference")
+    phase("dp", f"phase 21 in {secs(r2, 'dae_f32', 'dae_bf16', 'fcn') + secs(r1, 'dae_nccl'):.1f} s in the ranks; "
+          f"{note}")
+
+    # 22: DP serving
+    chunks = -(-PAR_SERVE_IMAGES // BATCH)
+    for name, per_chunk in (("serve_half", K_STEPS + 1), ("serve_general", K_STEPS)):
+        got = [r[name]["launches"] for r in r2]
+        if got != [per_chunk * chunks] * 2 or any(r[name]["strided"] for r in r2):
+            raise AssertionError(f"{name}: refine_tail launched {got} in the ranks")
+        launches["refine_tail"] += sum(got)
+        r0 = r2[0][name]
+        if name == "serve_half":
+            ok = r0["agree"] >= MIN_ARGMAX_AGREE
+            what = f"bf16 argmax agreement {r0['agree']:.6f} (limit {MIN_ARGMAX_AGREE})"
+        else:
+            ok = r0["max_abs"] <= PAR_F32_TOL and r0["off_beyond_ties"] == 0
+            what = (f"f32 max|dprobs| {r0['max_abs']:.2e} (limit {PAR_F32_TOL}), labels differing beyond near-ties "
+                    f"{r0['off_beyond_ties']}, agreement {r0['agree']:.6f}")
+        phase("dpserve", f"Predictor(mesh) {name[6:]} engine, batch {BATCH} on 2 ranks (4 a rank), "
+              f"{PAR_SERVE_IMAGES} images: against the single-device Predictor, {what}; refine_tail per rank {got[0]}; "
+              f"{r0['serve_s']:.2f} s")
+        if not ok:
+            raise AssertionError(f"{name}: DP serving beyond the single-device Predictor")
+    phase("dpserve", f"phase 22 in {secs(r2, 'serve_half', 'serve_general'):.1f} s in the ranks; {note}")
+
+    # 23: TP
+    for r, res in enumerate(r2):
+        t = res["tp"]
+        phase("tp", f"rank {r}: fc6 {t['shapes']['fc6']} fc7 {t['shapes']['fc7']}; fc6/fc7 params held "
+              f"{t['held'] / 2**20:.1f} MiB of {t['whole'] / 2**20:.1f} MiB, Adam moments {t['moments'] / 2**20:.1f} MiB; "
+              f"against the replicated run: logits {t['logits_rel']:.2e}, loss {t['loss_rel']:.2e}, gradients per leaf "
+              f"in norm worst {t['grad_rel']:.2e} ({t['grad_leaf']}); step {t['step_s']:.2f} s")
+        if not (t["logits_rel"] <= PAR_F32_TOL and t["loss_rel"] <= PAR_F32_TOL and t["grad_rel"] <= PAR_F32_TOL
+                and t["held"] < 0.51 * t["whole"]):
+            raise AssertionError(f"TP rank {r} beyond the replicated run")
+    phase("tp", f"phase 23 in {secs(r2, 'tp'):.1f} s in the ranks; {note}")
+
+    # 24: PP
+    for res, name, m, last, per_mb in (
+            (r2, "pp_half_m2", 2, 1, K_STEPS + 1), (r2, "pp_half_m4", 4, 1, K_STEPS + 1),
+            (r2, "pp_general", 2, 1, K_STEPS), (r2, "pp_mirror", 4, 1, K_STEPS),
+            (r2, "pp_predictor", 2 * chunks, 1, K_STEPS + 1), (r3, "pp3_half", 4, 2, K_STEPS + 1),
+            (r3, "pp3_general", 2, 2, K_STEPS), (r4, "dpxpp", 2, 1, K_STEPS + 1)):
+        got = [r[name]["launches"] for r in res]
+        want = [per_mb * m if r[name]["stage"] == last else 0 for r in res]
+        if got != want or any(r[name]["strided"] for r in res):
+            raise AssertionError(f"{name}: refine_tail launched {got} in the ranks; expected {want}")
+        launches["refine_tail"] += sum(got)
+        r0 = res[0][name]
+        if name in ("pp_general", "pp3_general"):
+            ok = r0["max_abs"] <= PAR_F32_TOL
+            what = f"f32 max|dy_K| {r0['max_abs']:.2e} (limit {PAR_F32_TOL})"
+        elif name == "pp_mirror":
+            ok = r0["agree"] >= PARITY_MIN_ARGMAX_AGREE and r0["beyond"] <= 1e-3
+            what = (f"f32 mirror max|dy_K| {r0['max_abs']:.2e}, {r0['beyond']:.3%} of values beyond {PAR_F32_TOL} "
+                    f"(limit 0.1%), argmax agreement {r0['agree']:.6f}")
+        else:
+            ok = r0["agree"] >= MIN_ARGMAX_AGREE
+            what = f"bf16 argmax agreement {r0['agree']:.6f} (limit {MIN_ARGMAX_AGREE})"
+        phase("pp", f"{name}: {len(res)} ranks, M={m if name != 'pp_predictor' else 2}, batch {BATCH} at {H}x{W} "
+              f"against the one-process engine on the ranks' chunks: {what}; argmax agreement with one run of the "
+              f"whole batch {r0['agree_whole']:.6f}; refine_tail per rank {got}; {r0['pp_s']:.2f} s")
+        if not ok:
+            raise AssertionError(f"{name}: the pipeline beyond the one-process engine")
+    phase("pp", f"phase 24 in {secs(r2, 'pp_half_m2', 'pp_half_m4', 'pp_general', 'pp_mirror', 'pp_predictor') + secs(r3, 'pp3_half', 'pp3_general') + secs(r4, 'dpxpp'):.1f} s in the ranks; {note}")
+    phase("parallel", f"phases 21-24: {time.perf_counter() - t_all:.1f} s wall in 4 launches "
+          f"({w2:.1f} s 2 ranks, {w1:.1f} s 1 rank over NCCL, {w3:.1f} s 3 ranks, {w4:.1f} s 4 ranks; each with "
+          f"its ranks' start); {note}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -2144,6 +2618,11 @@ def main() -> int:
     launches += run_utils_phase(dev, fcn, data_root)
     shutil.rmtree(data_root)
 
+    par = run_parallel_phases(smi)
+    launches += par["refine_tail"]
+    train_launches["corrupt_onehot"] += par["corrupt_onehot"]
+    train_launches["corrupt_probs"] += par["corrupt_probs"]
+
     # No single PyTorch call computes any of the five functions, so each
     # library_ms is null. K3's entry is the half engine's step (bf16, the
     # K-a-chunk launch), timed cold, as are K1/K2's (the training crop) and
@@ -2180,7 +2659,7 @@ def main() -> int:
             "ms": t["cold_ms"], "plain_ms": t["plain_cold_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
-    phase("done", f"phases 1-20 in {time.perf_counter() - t_start:.1f} s wall, the build included")
+    phase("done", f"phases 1-24 in {time.perf_counter() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

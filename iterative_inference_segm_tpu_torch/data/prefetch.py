@@ -13,8 +13,10 @@ consumer's kernels. Three rules keep that sound:
 * a pinned buffer is refilled only after the copy that last read it has
   finished (its event is waited on first).
 
-On the CPU it yields ``torch.from_numpy`` views: no copy. ``sharding`` is the
-JAX mesh placement, which the port has not yet (ROADMAP.md, Queue 1 item 12).
+On the CPU it yields ``torch.from_numpy`` views: no copy. ``sharding`` (a
+``parallel.sharding.Placement``, e.g. ``batch_sharding(mesh, 4)``) places
+each leaf over a mesh: each rank copies only its own part of every leaf
+(cut on the host, so only the shard's bytes are pinned and sent).
 """
 
 from __future__ import annotations
@@ -71,9 +73,14 @@ def device_prefetch(
 ) -> Iterator:
     """Yield the items of ``iterator`` (tuples, lists or dicts of numpy
     arrays or tensors) with every leaf on ``device`` (default: the current
-    CUDA device), ``depth`` items ahead of the consumer."""
+    CUDA device), ``depth`` items ahead of the consumer; with ``sharding``,
+    this rank's part of every leaf."""
     if sharding is not None:
-        raise NotImplementedError("sharding (mesh placement) is not ported yet (ROADMAP.md, Queue 1 item 12)")
+        from iterative_inference_segm_tpu_torch.parallel.sharding import Placement
+
+        if not isinstance(sharding, Placement):
+            raise TypeError(f"sharding must be a parallel.sharding.Placement; got {type(sharding).__name__}")
+        iterator = (_tree_map(sharding.local, item) for item in iterator)
     if depth < 1:
         raise ValueError(f"depth must be >= 1; got {depth}")
     device = torch.device("cuda" if device is None else device)

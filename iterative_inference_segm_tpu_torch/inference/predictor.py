@@ -15,6 +15,14 @@ Requests of any size are cut into chunks of ``batch_size``; the last chunk
 is zero-padded to the full batch, as the JAX version pads to its one
 compiled shape. Runs eagerly under ``torch.inference_mode`` (``torch.
 no_grad`` in energy mode, whose steps need autograd).
+
+In a launched group (``parallel.launch``) every rank calls ``predict`` with
+the same images. ``mesh`` (a 'data' axis) serves each chunk data-parallel:
+each rank runs its shard and the labels and probabilities are gathered, so
+every rank returns them whole. ``pp_mesh`` serves through the stage
+pipeline (``parallel.pp.make_pp_flagship``; a 'stage' axis of 2 or 3, and
+an optional 'data' axis for DP x PP), ``pp_microbatches`` in flight a
+chunk.
 """
 
 from __future__ import annotations
@@ -61,20 +69,31 @@ class Predictor:
         dae_kwargs: Mapping | None = None,
         mesh=None,
         pp_mesh=None,
+        pp_microbatches: int = 2,
     ):
         """``device`` is where the params live and every chunk runs (no
         default, and no fallback: a CUDA device without a card raises).
-        ``mesh`` and ``pp_mesh`` are not ported yet."""
+        ``mesh``: data-parallel serving over its 'data' axis (the batch
+        must divide by it). ``pp_mesh``: serving through the stage pipeline
+        (a DAE required; not with ``mesh``; the batch must divide by
+        ``pp_microbatches`` x the 'data' width)."""
         if engine not in ("general", "half"):
             raise ValueError(f"unknown engine {engine!r}; expected 'general' or 'half'")
-        if mesh is not None or pp_mesh is not None:
-            raise NotImplementedError("mesh / pp_mesh serving is not ported yet (ROADMAP.md)")
         self._score_logits = score_logits_fn(dae_arch)  # validates the arch name
         if engine == "half" and dae_arch != "dae":
             raise ValueError("engine='half' serves dae_arch='dae' only")
         check_mode(mode)
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1; got {batch_size}")
+        refine = dae_params is not None and (num_steps > 0 or engine == "half")
+        if pp_mesh is not None:
+            if mesh is not None:
+                raise ValueError("pass either mesh (DP eval sharding) or pp_mesh (pipeline)")
+            if not refine:
+                raise ValueError("pp_mesh pipelines the refinement serving path: requires a DAE and "
+                                 "num_steps > 0 (or engine='half', which always runs its rectification pass)")
+            if pp_microbatches < 1:
+                raise ValueError(f"pp_microbatches must be >= 1; got {pp_microbatches}")
         self.cfg = dataset
         self.batch_size = batch_size
         self.device = torch.device(device)
@@ -91,7 +110,35 @@ class Predictor:
         self._dae_kwargs = dict(dae_kwargs or {})
         self._depth = self._dae_kwargs.get("depth", 4)
         self._encoder = self._dae_kwargs.get("encoder", "pool")
-        self._refine = dae_params is not None and (num_steps > 0 or engine == "half")
+        self._refine = refine
+        self._mesh = mesh
+        self._pp = None
+        if mesh is not None:
+            from iterative_inference_segm_tpu_torch.parallel.mesh import axis_size
+            from iterative_inference_segm_tpu_torch.parallel.sharding import batch_sharding, replicate
+
+            n_dp = axis_size(mesh, "data")
+            if batch_size % n_dp:
+                raise ValueError(f"batch_size {batch_size} not divisible by mesh 'data' size {n_dp}")
+            replicate(mesh, fcn_params)
+            if dae_params is not None:
+                replicate(mesh, dae_params)
+            self._x_sharding = batch_sharding(mesh, 4)
+        if pp_mesh is not None:
+            from iterative_inference_segm_tpu_torch.parallel.mesh import axis_size, has_axis
+            from iterative_inference_segm_tpu_torch.parallel.pp import make_pp_flagship
+
+            pp_batch_axis = "data" if has_axis(pp_mesh, "data") else None
+            pp_dp = axis_size(pp_mesh, "data") if pp_batch_axis else 1
+            if batch_size % (pp_microbatches * pp_dp):
+                raise ValueError(f"batch_size {batch_size} not divisible by pp_microbatches "
+                                 f"{pp_microbatches} x DP width {pp_dp}")
+            self._pp = make_pp_flagship(
+                pp_mesh, eps=eps, num_steps=num_steps, h_taps=self._h_taps, depth=self._depth,
+                compute_dtype=compute_dtype, encoder=self._encoder, mode=mode, engine=engine,
+                dae_arch=dae_arch, batch_axis=pp_batch_axis,
+            )
+            self._pp_microbatches = pp_microbatches
 
     @classmethod
     def from_npz(
@@ -142,7 +189,25 @@ class Predictor:
         )
 
     def _predict(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One fixed-size chunk -> (labels int32, probs at the state dtype)."""
+        """One fixed-size chunk -> (labels int32, probs), whole on every rank
+        under a mesh."""
+        if self._pp is not None:
+            from iterative_inference_segm_tpu_torch.parallel.pp import merge_microbatches, split_microbatches
+
+            if self._normalize:
+                x = normalize_image(x, self.cfg, input_scale=self._input_scale)
+            _, yk = self._pp(self._fcn, self._dae, split_microbatches(x, self._pp_microbatches))
+            y = merge_microbatches(yk)
+            return torch.argmax(y, dim=-1).to(torch.int32), y.float()
+        if self._mesh is None:
+            return self._predict_local(x)
+        from iterative_inference_segm_tpu_torch.parallel.sharding import gather_batch
+
+        labels, probs = self._predict_local(self._x_sharding.local(x))
+        return gather_batch(self._mesh, labels), gather_batch(self._mesh, probs)
+
+    def _predict_local(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One chunk on this rank -> (labels int32, probs at the state dtype)."""
         if self._normalize:
             x = normalize_image(x, self.cfg, input_scale=self._input_scale)
         # bf16 probs only when the half engine refines at bf16; the general

@@ -86,19 +86,21 @@ def fcn8_apply(
     dropout_rate: float = 0.5,
     compute_dtype=torch.float32,
     probs_dtype=torch.float32,
+    model_group=None,
 ) -> tuple[torch.Tensor, dict]:
     """FCN-8 forward. ``x``: (B, H, W, in_channels) NHWC. Returns
     ``(probs, features)``: probs (B, H, W, C) at ``probs_dtype``, features
     the requested taps. Dropout after fc6/fc7 runs only when ``dropout`` is
     given (training): a generator that draws both keep-masks, or the two
-    masks themselves (``dropout_masks``)."""
+    masks themselves (``dropout_masks``). ``model_group``: fc6/fc7 tensor-
+    parallel over this group (``fcn8_head``)."""
     pools, feats = fcn8_backbone(
         params, x, return_features=return_features, compute_dtype=compute_dtype
     )
     probs, head_feats = fcn8_head(
         params, pools, (int(x.shape[1]), int(x.shape[2])),
         return_features=return_features, dropout=dropout,
-        dropout_rate=dropout_rate, probs_dtype=probs_dtype,
+        dropout_rate=dropout_rate, probs_dtype=probs_dtype, model_group=model_group,
     )
     feats.update(head_feats)
     return probs, feats
@@ -167,21 +169,38 @@ def fcn8_head(
     dropout: Dropout | None = None,
     dropout_rate: float = 0.5,
     probs_dtype=torch.float32,
+    model_group=None,
 ) -> tuple[torch.Tensor, dict]:
     """fc6..softmax + skip-fusion decoder from the backbone's pool maps; the
-    compute dtype follows the pool maps'. ``dropout`` as in ``fcn8_apply``."""
+    compute dtype follows the pool maps'. ``dropout`` as in ``fcn8_apply``.
+
+    With ``model_group``, fc6/fc7 run tensor-parallel over it
+    (``parallel.tp``): ``params`` hold this rank's fc6 output-channel slice
+    and fc7 input-channel slice (``shard_params_tp``), fc7's partial sums
+    are summed over the group before its bias, and the dropout mask after
+    fc6 is the rank's slice of the whole mask."""
     feats: dict = {}
     want = set(return_features)
     pool3, pool4, h = pools["pool3"], pools["pool4"], pools["pool5"]
+    if model_group is not None:
+        from iterative_inference_segm_tpu_torch.parallel.tp import copy_to_model, model_slice, reduce_from_model
+
+        h = copy_to_model(h, model_group)
 
     p = params["fc6"]
     h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
     if isinstance(dropout, torch.Generator):
-        dropout = dropout_masks(dropout, h.shape, dropout_rate=dropout_rate)
+        fc = int(params["fc7"]["w"].shape[0])  # the whole fc width, also under TP
+        dropout = dropout_masks(dropout, (*h.shape[:3], fc), dropout_rate=dropout_rate)
     if dropout is not None:
-        h = _dropout(h, dropout_rate, dropout[0])
+        mask = dropout[0] if model_group is None else model_slice(dropout[0], model_group)
+        h = _dropout(h, dropout_rate, mask)
     p = params["fc7"]
-    h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
+    if model_group is None:
+        h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
+    else:
+        h = reduce_from_model(conv2d(h, p["w"], padding="SAME"), model_group)
+        h = torch.relu(h + p["b"].to(h.dtype))
     if dropout is not None:
         h = _dropout(h, dropout_rate, dropout[1])
     if "fc7" in want:
@@ -223,11 +242,13 @@ def fcn8_logits(
     dropout: Dropout | None = None,
     dropout_rate: float = 0.5,
     compute_dtype=torch.float32,
+    model_group=None,
 ) -> torch.Tensor:
     """Pre-softmax scores (B, H, W, C) in f32 at input resolution (the
-    training loss wants logits); ``dropout`` as in ``fcn8_apply``."""
+    training loss wants logits); ``dropout`` and ``model_group`` as in
+    ``fcn8_apply``."""
     _, feats = fcn8_apply(
         params, x, return_features=("score",), dropout=dropout, dropout_rate=dropout_rate,
-        compute_dtype=compute_dtype,
+        compute_dtype=compute_dtype, model_group=model_group,
     )
     return feats["score"]

@@ -11,8 +11,11 @@ on the card with the file's statistics), ``--data-root ROOT`` (the disk
 loaders; needs Pillow) or ``--synthetic``. ``--fcn-reference-npz`` and
 ``--dae-mirror-npz`` load reference-era Lasagne checkpoints
 (``utils/import_weights``); ``--dump-dir`` writes colorized PNGs (Pillow).
-The flags of sharded and pipeline-parallel serving are not ported yet and
-exit with an error that names ROADMAP.md.
+``--devices N`` serves each test batch data-parallel over N devices, one
+rank each (``parallel.launch``; N cards over NCCL on CUDA, N gloo ranks
+with ``--device cpu``); ``--pp`` serves through the stage pipeline
+(``--pp-stages`` 2 or 3, ``--pp-microbatches`` in flight), composed with a
+'data' axis when ``--devices`` is a larger multiple of the stage count.
 
 Examples:
     python -m iterative_inference_segm_tpu_torch.scripts.iterative_inference \\
@@ -21,22 +24,15 @@ Examples:
         --synthetic --search --bf16 --num-batches 2
     python -m iterative_inference_segm_tpu_torch.scripts.iterative_inference \\
         --packed /data/packed --wire u8 --dae-npz best_dae.npz --search
+    python -m iterative_inference_segm_tpu_torch.scripts.iterative_inference \\
+        --synthetic --tiny --device cpu --engine half --dae-stem-pool 1 --dae-depth 3 \\
+        --batch-size 8 --pp --devices 4
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-# flags of the JAX CLI whose paths the port does not have yet, with the
-# ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "devices": "--devices (sharded serving) is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "pp": "--pp (pipeline-parallel serving) is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "pp_stages": "--pp-stages is not ported yet (ROADMAP.md, Queue 1 item 12)",
-    "pp_microbatches": "--pp-microbatches is not ported yet (ROADMAP.md, Queue 1 item 12)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -94,22 +90,59 @@ def parse_args(argv=None):
     p.add_argument("--dump-trajectory", action="store_true",
                    help="with --dump-dir: dump every step y_0..y_K of the first batch")
     args = p.parse_args(argv)
-    for name, why in _NOT_PORTED.items():
-        if getattr(args, name) != p.get_default(name):
-            p.error(why)
     if args.wire != "f32" and not args.packed:
         p.error("--wire u8 requires --packed (the wire format is a property "
                 "of the packed-path input runtime)")
     return args
 
 
-def main(argv=None) -> int:
+def pp_mesh_spec(args):
+    """The ``--pp`` mesh: ``--devices`` (default: the stage count) ranks as
+    ('stage',) or ('data', 'stage'), with the JAX CLI's checks."""
+    import torch
+
+    from iterative_inference_segm_tpu_torch.parallel.mesh import MeshSpec, local_device_count
+
+    if args.pp_microbatches < 1:
+        raise SystemExit(f"--pp-microbatches must be >= 1; got {args.pp_microbatches}")
+    avail = local_device_count(torch.device(args.device).type)
+    s = args.pp_stages
+    n_pp = avail if args.devices == "auto" else int(args.devices) if args.devices else s
+    if n_pp < s or n_pp % s:
+        raise SystemExit(f"--pp with {s} stages needs a device count divisible by {s}; got {n_pp}")
+    if n_pp > avail:
+        raise SystemExit(f"--pp over {n_pp} devices but only {avail} visible")
+    pp_dp = n_pp // s
+    if args.batch_size % (args.pp_microbatches * pp_dp):
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by --pp-microbatches "
+                         f"{args.pp_microbatches} x DP width {pp_dp}")
+    return MeshSpec(("data", "stage"), (pp_dp, s)) if pp_dp > 1 else MeshSpec(("stage",), (s,))
+
+
+def main(argv=None, *, mesh=None, device=None) -> int:
+    """``mesh``/``device``: set in the ranks that ``--devices``/``--pp`` launch."""
     args = parse_args(argv)
     import dataclasses
     import os
 
     import numpy as np
     import torch
+    import torch.distributed as dist
+
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_size, has_axis, mesh_from_flag
+    from iterative_inference_segm_tpu_torch.scripts._parallel import check_device, run_ranks
+
+    device = torch.device(device or args.device)
+    check_device(device)
+    if mesh is None:
+        # with --pp, --devices sizes the pipeline mesh; the DP path (and its
+        # own batch-divisibility rule) does not apply
+        spec = (pp_mesh_spec(args) if args.pp
+                else mesh_from_flag(args.devices, batch_size=args.batch_size, device_type=device.type))
+        if spec is not None:
+            return run_ranks(main, argv, spec, args.device, kernels=("refine_tail",),
+                             native_runtime=bool(args.packed))
+    writer = mesh is None or dist.get_rank() == 0
 
     from iterative_inference_segm_tpu_torch.data.config_datasets import DATASET_CONFIGS
     from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
@@ -131,10 +164,6 @@ def main(argv=None) -> int:
         metrics_from_confusion,
     )
     from iterative_inference_segm_tpu_torch.utils.checkpoint import check_npz_meta, load_npz
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA card here (pass --device cpu)")
 
     cfg = DATASET_CONFIGS[args.dataset]
     height = width = None
@@ -256,7 +285,30 @@ def main(argv=None) -> int:
 
     # num_steps=0 is honest (the search may pick K=0): the loop runs no step
     # and yk == y0
-    if args.engine == "half":
+    if args.pp:
+        from iterative_inference_segm_tpu_torch.inference.fused import no_autograd
+        from iterative_inference_segm_tpu_torch.parallel.pp import (
+            make_pp_flagship,
+            merge_microbatches,
+            split_microbatches,
+        )
+
+        pp_batch_axis = "data" if has_axis(mesh, "data") else None
+        pp_fwd = make_pp_flagship(
+            mesh, eps=eps, num_steps=num_steps, h_taps=tuple(args.concat_h), depth=args.dae_depth,
+            compute_dtype=compute_dtype, encoder=args.dae_encoder, mode=args.mode, engine=args.engine,
+            renorm=args.renorm, dae_arch=args.arch, batch_axis=pp_batch_axis,
+        )
+
+        def refine(x):
+            with no_autograd(args.mode):
+                y0, yk = pp_fwd(fcn_params, dae_params, split_microbatches(x, args.pp_microbatches))
+            return merge_microbatches(y0), merge_microbatches(yk)
+
+        dp_note = f" x {axis_size(mesh, 'data')}-wide DP" if pp_batch_axis else ""
+        print(f"pipeline-parallel serving: {axis_size(mesh, 'stage')} stages{dp_note}, "
+              f"{args.pp_microbatches} microbatches in flight", flush=True)
+    elif args.engine == "half":
         refine = make_half_refiner(
             fcn8_apply, fcn_params, dae_params, eps=eps, num_steps=num_steps,
             h_taps=tuple(args.concat_h), depth=args.dae_depth, compute_dtype=compute_dtype,
@@ -278,7 +330,7 @@ def main(argv=None) -> int:
             return normalize_image(x, test_cfg, input_scale=255.0)
         return x.to(torch.float32)
 
-    if args.dump_dir and args.dump_trajectory and test_batches:
+    if args.dump_dir and args.dump_trajectory and test_batches and writer:
         from iterative_inference_segm_tpu_torch.inference.fused import no_autograd
         from iterative_inference_segm_tpu_torch.utils.colorize import save_label_png
 
@@ -295,16 +347,44 @@ def main(argv=None) -> int:
             for j in range(traj.shape[1]):
                 save_label_png(os.path.join(args.dump_dir, f"traj_{j:02d}_step{k:02d}.png"), traj[k, j], cfg)
 
+    if mesh is None:
+        def serve(images):
+            return refine(put_x(images))
+    else:
+        from iterative_inference_segm_tpu_torch.parallel.sharding import batch_sharding, gather_batch
+
+        def pad_full(im):
+            """A short last batch padded to the batch size (the padded rows'
+            predictions are cut off again)."""
+            im = np.asarray(im)
+            if im.shape[0] < args.batch_size:
+                im = np.concatenate([im, np.zeros((args.batch_size - im.shape[0], *im.shape[1:]), im.dtype)])
+            return im
+
+        if args.pp:
+            def serve(images):
+                y0, yk = refine(put_x(pad_full(images)))
+                return y0[: len(images)], yk[: len(images)]
+        else:
+            x_sharding = batch_sharding(mesh, 4)
+
+            def serve(images):
+                # only this rank's shard crosses to its device
+                y0, yk = refine(put_x(x_sharding.local(pad_full(images))))
+                return gather_batch(mesh, y0)[: len(images)], gather_batch(mesh, yk)[: len(images)]
+
+            print(f"eval batches sharded over {axis_size(mesh, 'data')} devices", flush=True)
+
     cm0 = cmk = None
     for bi, (images, labels) in enumerate(test_batches):
-        y0, yk = refine(put_x(images))
+        y0, yk = serve(images)
         p0, pk = torch.argmax(y0, -1), torch.argmax(yk, -1)
         labels = torch.from_numpy(np.asarray(labels)).to(device)
         c0 = confusion_matrix(p0, labels, n_classes=cfg.n_classes)
         ck = confusion_matrix(pk, labels, n_classes=cfg.n_classes)
         cm0 = c0 if cm0 is None else cm0 + c0
         cmk = ck if cmk is None else cmk + ck
-        if args.dump_dir:
+        if args.dump_dir and writer:
             from iterative_inference_segm_tpu_torch.utils.colorize import save_label_png
 
             os.makedirs(args.dump_dir, exist_ok=True)

@@ -9,8 +9,10 @@ conditioned on frozen FCN-8 features; ``--sigma``, ``--from-fcn`` and
 ``Predictor.from_npz``) and ``ckpt/<epoch>/`` for resuming. The data is
 ``--packed DIR`` (the native runtime; ``--wire u8`` sends bytes to the card,
 which normalizes them with the file's statistics), ``--data-root ROOT``
-(the disk loaders; needs Pillow) or ``--synthetic``. ``--devices`` is not
-ported yet and exits with an error that names its ROADMAP.md item.
+(the disk loaders; needs Pillow) or ``--synthetic``. ``--devices N`` (or
+``auto``) trains data-parallel over N devices, one rank each
+(``parallel.launch``): N cards over NCCL on CUDA, N gloo ranks with
+``--device cpu``.
 
 Examples:
     python -m iterative_inference_segm_tpu_torch.scripts.train_dae \\
@@ -19,6 +21,8 @@ Examples:
         --synthetic --bf16 --batch-size 32 --dae-depth 3 --dae-stem-pool 1
     python -m iterative_inference_segm_tpu_torch.scripts.train_dae \\
         --packed /data/packed --wire u8 --bf16 --batch-size 32
+    python -m iterative_inference_segm_tpu_torch.scripts.train_dae \\
+        --synthetic --tiny --max-epochs 1 --device cpu --devices 2
 """
 
 from __future__ import annotations
@@ -27,13 +31,6 @@ import argparse
 import dataclasses
 import os
 import sys
-
-# flags of the JAX CLI whose paths the port does not have yet, with the
-# ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "devices": "--devices (data-parallel training) is not ported yet (ROADMAP.md, Queue 1 item 12)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -80,18 +77,27 @@ def parse_args(argv=None):
     p.add_argument("--num-train-batches", type=int, default=8)
     p.add_argument("--num-val-batches", type=int, default=2)
     args = p.parse_args(argv)
-    for name, why in _NOT_PORTED.items():
-        if getattr(args, name) != p.get_default(name):
-            p.error(why)
     if args.wire != "f32" and not args.packed:
         p.error("--wire u8 requires --packed (the wire format is a property "
                 "of the packed-path input runtime)")
     return args
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, mesh=None, device=None) -> int:
+    """``mesh``/``device``: set in the ranks that ``--devices`` launches."""
     args = parse_args(argv)
     import torch
+
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_size, mesh_from_flag
+    from iterative_inference_segm_tpu_torch.scripts._parallel import check_device, run_ranks
+
+    device = torch.device(device or args.device)
+    check_device(device)
+    if mesh is None:
+        spec = mesh_from_flag(args.devices, batch_size=args.batch_size, device_type=device.type)
+        if spec is not None:
+            return run_ranks(main, argv, spec, args.device, kernels=("corruption",),
+                             native_runtime=bool(args.packed))
 
     from iterative_inference_segm_tpu_torch.data.config_datasets import DATASET_CONFIGS
     from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
@@ -100,10 +106,6 @@ def main(argv=None) -> int:
     from iterative_inference_segm_tpu_torch.train.train_dae import train_dae
     from iterative_inference_segm_tpu_torch.utils.checkpoint import load_npz
     from iterative_inference_segm_tpu_torch.utils.experiment import build_experiment_name
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA card here (pass --device cpu)")
 
     cfg = DATASET_CONFIGS[args.dataset]
     height = width = None
@@ -142,9 +144,12 @@ def main(argv=None) -> int:
             seed=args.seed,
         ),
     )
+    if mesh is not None:
+        print(f"[train_dae] data-parallel over {axis_size(mesh, 'data')} devices", flush=True)
     result = train_dae(
         fcn_params=fcn_params,
         dataset=cfg,
+        mesh=mesh,
         train_data=train_data,
         val_data=val_data,
         tcfg=tcfg,

@@ -8,8 +8,10 @@ resuming. ``--packed`` (with ``--wire f32|u8``) and ``--data-root`` pick the
 data as in ``train_dae``'s twin; ``--load-reference-npz`` starts from a
 reference-era Lasagne checkpoint (``utils/import_weights``) and
 ``--profile-dir`` writes a ``torch.profiler`` Chrome trace of the run
-(``utils/profiling``). ``--devices`` is not ported yet and exits with an
-error that names its ROADMAP.md item.
+(``utils/profiling``; rank 0's under ``--devices``). ``--devices N`` (or
+``auto``) trains data-parallel over N devices, one rank each
+(``parallel.launch``): N cards over NCCL on CUDA, N gloo ranks with
+``--device cpu``.
 
 Examples:
     python -m iterative_inference_segm_tpu_torch.scripts.train_fcn8 \\
@@ -25,13 +27,6 @@ import contextlib
 import dataclasses
 import os
 import sys
-
-# flags of the JAX CLI whose paths the port does not have yet, with the
-# ROADMAP.md item that ports them
-_NOT_PORTED = {
-    "devices": "--devices (data-parallel training) is not ported yet (ROADMAP.md, Queue 1 item 12)",
-}
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -62,18 +57,27 @@ def parse_args(argv=None):
     p.add_argument("--num-train-batches", type=int, default=8, help="synthetic only")
     p.add_argument("--num-val-batches", type=int, default=2, help="synthetic only")
     args = p.parse_args(argv)
-    for name, why in _NOT_PORTED.items():
-        if getattr(args, name) != p.get_default(name):
-            p.error(why)
     if args.wire != "f32" and not args.packed:
         p.error("--wire u8 requires --packed (the wire format is a property "
                 "of the packed-path input runtime)")
     return args
 
 
-def main(argv=None) -> int:
+def main(argv=None, *, mesh=None, device=None) -> int:
+    """``mesh``/``device``: set in the ranks that ``--devices`` launches."""
     args = parse_args(argv)
     import torch
+    import torch.distributed as dist
+
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_size, mesh_from_flag
+    from iterative_inference_segm_tpu_torch.scripts._parallel import check_device, run_ranks
+
+    device = torch.device(device or args.device)
+    check_device(device)
+    if mesh is None:
+        spec = mesh_from_flag(args.devices, batch_size=args.batch_size, device_type=device.type)
+        if spec is not None:
+            return run_ranks(main, argv, spec, args.device, native_runtime=bool(args.packed))
 
     from iterative_inference_segm_tpu_torch.data.config_datasets import DATASET_CONFIGS
     from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
@@ -83,10 +87,6 @@ def main(argv=None) -> int:
     from iterative_inference_segm_tpu_torch.utils import profiling
     from iterative_inference_segm_tpu_torch.utils.checkpoint import load_npz
     from iterative_inference_segm_tpu_torch.utils.experiment import build_experiment_name
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA card here (pass --device cpu)")
 
     cfg = DATASET_CONFIGS[args.dataset]
     height = width = None
@@ -126,9 +126,13 @@ def main(argv=None) -> int:
         else:
             params = load_npz(args.load_npz, template)
 
-    trace = profiling.trace(args.profile_dir) if args.profile_dir else contextlib.nullcontext()
+    writer = mesh is None or dist.get_rank() == 0
+    if mesh is not None:
+        print(f"[train_fcn8] data-parallel over {axis_size(mesh, 'data')} devices", flush=True)
+    trace = profiling.trace(args.profile_dir) if args.profile_dir and writer else contextlib.nullcontext()
     with trace:
         result = train_fcn8(
+            mesh=mesh,
             dataset=cfg,
             train_data=train_data,
             val_data=val_data,

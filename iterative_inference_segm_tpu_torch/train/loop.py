@@ -80,6 +80,78 @@ class EarlyStopper:
         return self.bad_epochs > self.patience
 
 
+class DataParallel:
+    """What a trainer does differently under a 'data' mesh, in one place;
+    with ``mesh=None`` every method is the single-device identity.
+
+    * ``put(images, labels)``: this rank's shard of a whole batch (a short
+      batch padded with ``void_label`` rows,
+      ``parallel.sharding.padded_batch_putter``);
+    * ``own(draw)``: this rank's randomness. Every rank calls ``draw`` once
+      for each 'data' rank, in rank order, and keeps its own draw, so the
+      generators stay equal on every rank (a checkpoint holds one state)
+      while each rank's crops, noise and masks differ;
+    * ``average_gradients(optimizer, loss)``: the gradients of the
+      optimizer's tensors and the loss averaged with one all-reduce;
+    * ``sum`` / ``mean``: an eval count summed, a loss averaged;
+    * ``replicate(params)``: rank 0's params on every rank;
+    * ``writer``: whether this rank writes the workdir (rank 0).
+    """
+
+    def __init__(self, mesh=None, *, void_label: int | None = None):
+        self.mesh = mesh
+        self.writer = True
+        self.size, self.index = 1, 0
+        self._put = lambda images, labels: (images, labels)
+        if mesh is not None:
+            import torch.distributed as dist
+
+            from iterative_inference_segm_tpu_torch.parallel.mesh import axis_index, axis_size
+            from iterative_inference_segm_tpu_torch.parallel.sharding import padded_batch_putter
+
+            self.size, self.index = axis_size(mesh, "data"), axis_index(mesh, "data")
+            self.writer = dist.get_rank() == 0
+            if void_label is not None:
+                self._put = padded_batch_putter(mesh, void_label=void_label)
+
+    def put(self, images, labels):
+        return self._put(images, labels)
+
+    def own(self, draw):
+        draws = [draw() for _ in range(self.size)]
+        return draws[self.index]
+
+    def average_gradients(self, optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> torch.Tensor:
+        if self.mesh is None:
+            return loss
+        from iterative_inference_segm_tpu_torch.parallel.dp import average_gradients
+
+        tensors = [t for g in optimizer.param_groups for t in g["params"]]
+        return average_gradients(tensors, loss, self.mesh)
+
+    def _reduce(self, t: torch.Tensor, *, mean: bool) -> torch.Tensor:
+        if self.mesh is None:
+            return t
+        from iterative_inference_segm_tpu_torch.parallel import comm
+        from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
+
+        t = comm.all_reduce_(t.clone(), axis_group(self.mesh, "data"))
+        return t / self.size if mean else t
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self._reduce(t, mean=False)
+
+    def mean(self, t: torch.Tensor) -> torch.Tensor:
+        return self._reduce(t, mean=True)
+
+    def replicate(self, params: dict) -> dict:
+        if self.mesh is not None:
+            from iterative_inference_segm_tpu_torch.parallel.sharding import replicate
+
+            replicate(self.mesh, params)
+        return params
+
+
 def device_of(params: dict) -> torch.device:
     return next(iter(next(iter(params.values())).values())).device
 

@@ -19,6 +19,13 @@ Randomness is explicit. A step takes a ``StepRandomness`` (the uint32 noise
 seed, the per-sample crop offsets and flips, the mix regime's coin), which
 ``train_dae`` draws from a ``torch.Generator`` seeded from ``tcfg.seed``;
 a test hands the step what the JAX step derives from its key.
+
+``mesh`` trains data-parallel over the mesh's 'data' axis, one rank a
+device (``parallel.launch``): each rank steps on its shard of every batch
+with randomness of its own (the JAX step folds the device index into its
+key: each device draws its own crops, noise and coin), the loss and the
+gradients are averaged with one all-reduce (``parallel.dp``), the
+confusion counts summed. Only rank 0 writes the workdir.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -50,6 +58,7 @@ from iterative_inference_segm_tpu_torch.ops import corruption_kernel as kernels
 from iterative_inference_segm_tpu_torch.ops.losses import crossentropy_probs
 from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from iterative_inference_segm_tpu_torch.train.loop import (
+    DataParallel,
     EarlyStopper,
     TrainConfig,
     batches,
@@ -126,9 +135,7 @@ def make_dae_train_step(
     (same-distribution) noise. ``train_step.stages`` exposes the step's
     parts (``prepare``, ``features``, ``corrupt``, ``loss``) for timing.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel) training is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+    dp = DataParallel(mesh)
     if corruption_impl not in CORRUPTION_IMPLS:
         raise ValueError(f"unknown corruption_impl {corruption_impl!r}; expected one of "
                          f"{CORRUPTION_IMPLS}")
@@ -209,6 +216,7 @@ def make_dae_train_step(
         optimizer.zero_grad(set_to_none=True)
         value, _ = loss(dae_params, y_tilde, h, labels)
         value.backward()
+        value = dp.average_gradients(optimizer, value)
         optimizer.step()
         return value.detach()
 
@@ -219,7 +227,7 @@ def make_dae_train_step(
             y_tilde = corrupt(labels, probs, rand)
             value, recon = loss(dae_params, y_tilde, h, labels)
             cm = confusion_matrix(torch.argmax(recon, dim=-1), labels, n_classes=n_classes)
-        return cm, value
+        return dp.sum(cm), dp.mean(value)
 
     train_step.stages = types.SimpleNamespace(
         prepare=lambda images, labels, rand: prepare(images, labels, rand, crop=augment),
@@ -262,10 +270,11 @@ def train_dae(
     everything runs on their device. Same arguments, history keys and
     return dict as the JAX ``train_dae``. ``train_data`` / ``val_data``:
     iterables of numpy ``(images, labels)`` batches, or callables that
-    return a fresh one per epoch."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel) training is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+    return a fresh one per epoch. ``mesh``: data-parallel over its 'data'
+    axis, every rank fed the same whole batches (a short last batch is
+    padded with void rows, which add nothing); the params are broadcast
+    from rank 0 first and only rank 0 writes the workdir."""
+    dp = DataParallel(mesh, void_label=dataset.void_label)
     tcfg = tcfg or TrainConfig()
     device = device_of(fcn_params)
     gen = torch.Generator().manual_seed(tcfg.seed)
@@ -275,11 +284,13 @@ def train_dae(
             stem_pool=dae_stem_pool, tail=dae_tail, widths=dae_widths, tied=dae_tied,
             device=device,
         )
+    dp.replicate(fcn_params)
+    dp.replicate(dae_params)
     optimizer = make_optimizer(tcfg, dae_params)
     train_step, eval_step = make_dae_train_step(
         dataset, tcfg, optimizer, h_taps=tuple(h_taps), sigma=sigma, from_gt=from_gt,
         augment=augment, normalize=normalize, input_scale=input_scale, dae_depth=dae_depth,
-        dae_encoder=dae_encoder, corruption_impl=corruption_impl, arch=arch,
+        dae_encoder=dae_encoder, corruption_impl=corruption_impl, arch=arch, mesh=mesh,
     )
     p_gt = float(from_gt)
     ckpt_meta = checkpoint_meta(
@@ -301,13 +312,13 @@ def train_dae(
         losses = []
         n_images = 0
         for images, labels in batches(train_data):
-            x, y = to_device(images, labels, device)
-            rand = draw_step_randomness(
+            x, y = to_device(*dp.put(images, labels), device)
+            rand = dp.own(lambda: draw_step_randomness(
                 gen, batch=int(y.shape[0]), hw=(int(y.shape[1]), int(y.shape[2])),
                 crop=dataset.train_crop if augment else None, p_gt=p_gt,
-            )
+            ))
             losses.append(train_step(dae_params, fcn_params, x, y, rand))
-            n_images += int(y.shape[0])
+            n_images += int(np.shape(images)[0])
         train_loss = float(torch.stack(losses).mean())  # waits for the device
         epoch_seconds = time.perf_counter() - t_epoch
 
@@ -317,9 +328,9 @@ def train_dae(
         cm_total = None
         val_losses = []
         for images, labels in batches(val_data):
-            x, y = to_device(images, labels, device)
-            rand = draw_step_randomness(eval_gen, batch=int(y.shape[0]), hw=(0, 0), crop=None,
-                                        p_gt=p_gt)
+            x, y = to_device(*dp.put(images, labels), device)
+            rand = dp.own(lambda: draw_step_randomness(eval_gen, batch=int(y.shape[0]), hw=(0, 0),
+                                                       crop=None, p_gt=p_gt))
             cm, vloss = eval_step(dae_params, fcn_params, x, y, rand)
             cm_total = cm if cm_total is None else cm_total + cm
             val_losses.append(vloss)
@@ -331,16 +342,16 @@ def train_dae(
              "val_miou": val_miou, "epoch_seconds": round(epoch_seconds, 3),
              "train_images_per_sec": round(n_images / max(epoch_seconds, 1e-9), 2)}
         )
-        if logger:
+        if logger and dp.writer:
             logger.log(epoch, **history[-1])
         if epoch_callback:
             epoch_callback(epoch, history[-1], dae_params)
 
         if stopper.update(epoch, val_miou):
             best_params = clone_params(dae_params)
-            if workdir:
+            if workdir and dp.writer:
                 save_npz(Path(workdir) / "best_dae.npz", best_params, meta=ckpt_meta)
-        if workdir and checkpoint_every and epoch % checkpoint_every == 0:
+        if workdir and dp.writer and checkpoint_every and epoch % checkpoint_every == 0:
             save_checkpoint(
                 Path(workdir) / "ckpt", epoch,
                 {"params": clone_params(dae_params), "opt_state": optimizer.state_dict(),

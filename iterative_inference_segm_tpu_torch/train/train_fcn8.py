@@ -11,6 +11,12 @@ both from a ``torch.Generator`` seeded from ``tcfg.seed``; a test hands the
 step what the JAX step derives from its key. The step draws the masks
 before the forward, so a rematerialized forward (``tcfg.remat``) sees the
 same ones when it runs again.
+
+``mesh`` trains data-parallel over the mesh's 'data' axis, one rank a
+device (``parallel.launch``): each rank steps on its shard of every batch
+with crops and dropout keep-masks of its own, drawn for its shard; the loss
+and gradients are averaged with one all-reduce, the eval confusion counts
+summed. Only rank 0 writes the workdir.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ from dataclasses import dataclass
 from pathlib import Path
 from typing import Callable, Iterable
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
@@ -41,6 +48,7 @@ from iterative_inference_segm_tpu_torch.models.fcn8 import (
 from iterative_inference_segm_tpu_torch.ops.losses import masked_crossentropy
 from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from iterative_inference_segm_tpu_torch.train.loop import (
+    DataParallel,
     EarlyStopper,
     TrainConfig,
     batches,
@@ -101,12 +109,13 @@ def make_fcn8_train_step(
     ``(confusion matrix, loss)``, the loss taken of ``log(clip(probs, 1e-7,
     1))`` of the f32 softmax, as in the JAX step. images (B, H, W, C) float,
     labels (B, H, W) int, both on the params' device; ``rand`` a
-    ``StepRandomness``. ``train_step.stages`` exposes the step's parts
+    ``StepRandomness``. With ``mesh``, images and labels are this rank's
+    shard and ``rand`` this rank's randomness; the loss and confusion counts
+    come back averaged and summed over the 'data' axis, and every rank
+    applies the one averaged gradient. ``train_step.stages`` exposes the step's parts
     (``prepare``, ``masks``, ``loss``) for timing.
     """
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel) training is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+    dp = DataParallel(mesh)
     n_classes = cfg.n_classes
 
     def logits_fn(params, images, masks):
@@ -141,6 +150,7 @@ def make_fcn8_train_step(
         optimizer.zero_grad(set_to_none=True)
         value = loss(params, images, labels, m)
         value.backward()
+        value = dp.average_gradients(optimizer, value)
         optimizer.step()
         return value.detach()
 
@@ -151,7 +161,7 @@ def make_fcn8_train_step(
             cm = confusion_matrix(torch.argmax(probs, dim=-1), labels, n_classes=n_classes)
             value = masked_crossentropy(torch.log(torch.clamp(probs, 1e-7, 1.0)), labels,
                                         n_classes=n_classes)
-        return cm, value
+        return dp.sum(cm), dp.mean(value)
 
     train_step.stages = types.SimpleNamespace(
         prepare=lambda images, labels, rand: prepare(images, labels, rand, crop=augment),
@@ -187,20 +197,23 @@ def train_fcn8(
     labels)`` batches, or callables that return a fresh one per epoch. With
     a ``workdir``, ``metrics.jsonl``, ``best_fcn8.npz`` (JAX layout, stamped
     ``{"arch": "fcn8", "fc_channels": ...}``) and ``ckpt/<epoch>/`` are
-    written, and a rerun resumes from the latest checkpoint."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (data-parallel) training is not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 12)")
+    written, and a rerun resumes from the latest checkpoint. ``mesh``:
+    data-parallel over its 'data' axis, every rank fed the same whole
+    batches (a short last batch padded with void rows, which add nothing);
+    the params are broadcast from rank 0 first and only rank 0 writes the
+    workdir."""
+    dp = DataParallel(mesh, void_label=dataset.void_label)
     tcfg = tcfg or TrainConfig()
     gen = torch.Generator().manual_seed(tcfg.seed)
     if params is None:
         params = init_fcn8(gen, n_classes=dataset.n_classes, in_channels=dataset.in_channels,
                            fc_channels=fc_channels, device=device)
     device = device_of(params)
+    dp.replicate(params)
     optimizer = make_optimizer(tcfg, params)
     train_step, eval_step = make_fcn8_train_step(
         dataset, tcfg, optimizer, augment=augment, normalize=normalize,
-        input_scale=input_scale, fc_channels=fc_channels,
+        input_scale=input_scale, fc_channels=fc_channels, mesh=mesh,
     )
 
     logger = MetricLogger(workdir) if workdir else None
@@ -217,20 +230,20 @@ def train_fcn8(
         losses = []
         n_images = 0
         for images, labels in batches(train_data):
-            x, y = to_device(images, labels, device)
-            rand = draw_step_randomness(
+            x, y = to_device(*dp.put(images, labels), device)
+            rand = dp.own(lambda: draw_step_randomness(
                 gen, batch=int(y.shape[0]), hw=(int(y.shape[1]), int(y.shape[2])),
                 crop=dataset.train_crop if augment else None, device=device,
-            )
+            ))
             losses.append(train_step(params, x, y, rand))
-            n_images += int(y.shape[0])
+            n_images += int(np.shape(images)[0])
         train_loss = float(torch.stack(losses).mean())  # waits for the device
         epoch_seconds = time.perf_counter() - t_epoch
 
         cm_total = None
         val_losses = []
         for images, labels in batches(val_data):
-            x, y = to_device(images, labels, device)
+            x, y = to_device(*dp.put(images, labels), device)
             cm, vloss = eval_step(params, x, y)
             cm_total = cm if cm_total is None else cm_total + cm
             val_losses.append(vloss)
@@ -243,17 +256,17 @@ def train_fcn8(
              "epoch_seconds": round(epoch_seconds, 3),
              "train_images_per_sec": round(n_images / max(epoch_seconds, 1e-9), 2)}
         )
-        if logger:
+        if logger and dp.writer:
             logger.log(epoch, **history[-1])
         if epoch_callback:
             epoch_callback(epoch, history[-1], params)
 
         if stopper.update(epoch, val_miou):
             best_params = clone_params(params)
-            if workdir:
+            if workdir and dp.writer:
                 save_npz(Path(workdir) / "best_fcn8.npz", best_params,
                          meta={"arch": "fcn8", "fc_channels": fc_channels})
-        if workdir and checkpoint_every and epoch % checkpoint_every == 0:
+        if workdir and dp.writer and checkpoint_every and epoch % checkpoint_every == 0:
             save_checkpoint(
                 Path(workdir) / "ckpt", epoch,
                 {"params": clone_params(params), "opt_state": optimizer.state_dict(),

@@ -2,7 +2,10 @@
 and kernel names, and the edge cases of K3, K1/K2 and K4/K5 it holds on the
 card (phases 3, 7 and 11; run here through the wrappers, which take the
 plain versions on the CPU); the unpool tie cases (17); the check of the two
-wires, the device's idle share (18) and the inverse converters (20)."""
+wires, the device's idle share (18) and the inverse converters (20); and
+the checks of the parallel phases (21-24) over every rank's results, with
+a stand-in for the launcher: the launches they add up, and a spoiled
+result in any one rank failing the run."""
 
 import pytest
 
@@ -223,3 +226,94 @@ def test_profiled_training_marks_each_batch_copy(monkeypatch):
 
 def test_split_flags_name_pack_datasets_counts():
     assert chip_smoke.split_flags(chip_smoke.EM_SPLITS) == ["--num-train", "24", "--num-val", "3", "--num-test", "3"]
+
+
+def _fake_launch(plant=None):
+    """A stand-in for ``launch_ranks`` that answers phases 21-24's cases as
+    ranks that pass would: per rank, its stage and its kernel launches.
+    ``plant(name, rank, result)`` may spoil one result."""
+
+    def launch_ranks(fn, cases, *, mesh, device, backend, kernels):
+        assert fn is chip_smoke.par_cases and set(kernels) == {"refine_tail", "corruption"}
+        assert (backend, device) == ((None, "cuda") if mesh.size == 1 else ("gloo", "cuda:0"))
+        out = [{} for _ in range(mesh.size)]
+        for name, fname, kw in cases:
+            for r in range(mesh.size):
+                res = {"secs": 1.0}
+                if fname == "par_dae_step":
+                    res.update(k1=int(kw["from_gt"] is True), k2=int(kw["from_gt"] is False), loss=3.0, step_s=1.0)
+                    if r == 0:
+                        res.update(loss_rel=0.0, param_rel=0.0, param_leaf="all", moved=1e-3)
+                elif fname == "par_fcn_step":
+                    res.update(loss=3.0, step_s=1.0, loss_rel=0.0, moment_rel=0.0, moment_leaf="fc6/w",
+                               param_rel=0.0, unset=0, total=1)
+                elif fname == "par_serve":
+                    per = chip_smoke.K_STEPS + (kw["engine"] == "half")
+                    res.update(launches=2 * per, strided=0, agree=1.0, max_abs=0.0, off_beyond_ties=0, serve_s=1.0)
+                elif fname == "par_tp":
+                    res.update(logits_rel=0.0, loss_rel=0.0, grad_rel=0.0, grad_leaf="fc6/w", held=50, whole=100,
+                               moments=100, step_s=0.1, shapes={"fc6": (2048,), "fc7": (4096, 2048)})
+                else:
+                    sizes = kw.get("sizes", mesh.axis_sizes)
+                    stage = r % sizes[-1]
+                    per = chip_smoke.K_STEPS + (kw["engine"] == "half")
+                    m = kw["microbatches"] * (2 if kw.get("predictor") else 1)
+                    res.update(stage=stage, launches=per * m if stage == sizes[-1] - 1 else 0, strided=0, pp_s=1.0,
+                               agree=1.0, agree_whole=0.999, max_abs=0.0, beyond=0.0)
+                if plant:
+                    plant(name, r, res)
+                out[r][name] = res
+        return out
+
+    return launch_ranks
+
+
+def test_parallel_phases_add_up_every_ranks_launches(monkeypatch, capsys):
+    """Phases 21-24 read each rank's counts: K1 in the f32 DP steps (2 ranks
+    and 1 over NCCL), K2 in the bf16 one, refine_tail in the DP Predictor's
+    ranks and in the pipeline's refinement stage alone."""
+    from iterative_inference_segm_tpu_torch.parallel import launch
+
+    monkeypatch.setattr(launch, "launch_ranks", _fake_launch())
+    got = chip_smoke.run_parallel_phases("NVIDIA H100 80GB HBM3, 700.00 W")
+    k = chip_smoke.K_STEPS
+    serve = 2 * 2 * (k + 1) + 2 * 2 * k
+    pp = (k + 1) * 2 + (k + 1) * 4 + k * 2 + k * 4 + (k + 1) * 4 + (k + 1) * 4 + k * 2 + 2 * (k + 1) * 2
+    assert got == {"refine_tail": serve + pp, "corrupt_onehot": 3, "corrupt_probs": 2}
+    out = capsys.readouterr().out
+    assert out.count("not a multi-card figure") >= 5 and "phases 21-24:" in out
+
+
+@pytest.mark.parametrize("case,name,rank,spoil", [
+    ("k1_missing_in_a_rank", "dae_f32", 1, {"k1": 0}),
+    ("f32_loss_off", "dae_f32", 0, {"loss_rel": 2e-5}),
+    ("nccl_params_off", "dae_nccl", 0, {"param_rel": 2e-5}),
+    ("step_did_not_move", "dae_bf16", 0, {"moved": 0.0}),
+    ("fcn_moments_off", "fcn", 0, {"moment_rel": 0.5}),
+    ("serve_bf16_agreement", "serve_half", 0, {"agree": 0.99}),
+    ("serve_f32_label_off", "serve_general", 0, {"off_beyond_ties": 1}),
+    ("serve_strided", "serve_general", 1, {"strided": 1}),
+    ("tp_holds_everything", "tp", 1, {"held": 100}),
+    ("tp_gradient_off", "tp", 0, {"grad_rel": 1e-3}),
+    ("pp_launch_in_stage_0", "pp_half_m2", 0, {"launches": 1}),
+    ("pp_f32_off", "pp3_general", 0, {"max_abs": 1e-3}),
+    ("pp_mirror_agreement", "pp_mirror", 0, {"agree": 0.99}),
+    ("dpxpp_agreement", "dpxpp", 0, {"agree": 0.9}),
+])
+def test_parallel_phases_fail_on_a_spoiled_rank(monkeypatch, case, name, rank, spoil):
+    from iterative_inference_segm_tpu_torch.parallel import launch
+
+    def plant(n, r, res):
+        if (n, r) == (name, rank):
+            res.update(spoil)
+
+    monkeypatch.setattr(launch, "launch_ranks", _fake_launch(plant))
+    with pytest.raises(AssertionError):
+        chip_smoke.run_parallel_phases("card")
+
+
+def test_leaf_rel_names_the_worst_leaf():
+    a = {"x": {"w": torch.tensor([1.0, 2.0])}, "y": {"b": torch.tensor([4.0])}}
+    b = {"x": {"w": torch.tensor([1.0, 2.5])}, "y": {"b": torch.tensor([4.0])}}
+    assert chip_smoke._leaf_rel(a, b) == (0.2, "x/w")
+    assert chip_smoke._leaf_rel(a, a) == (0.0, "all")

@@ -4,10 +4,10 @@
 ``--dae-npz`` written by the JAX package: in f32 they print the same k=0
 and k=K lines (mIoU and accuracy to 4 decimals), with and without
 ``--search``, and with ``--arch mirror --dae-tied`` and ``--arch
-contextmod``. Flags the port does not have yet (sharded and pipeline
-serving) exit non-zero naming ROADMAP.md; the flags refused until their
-modules were ported are accepted, and ``--wire u8`` alone gets the JAX
-CLI's refusal. The data flags' seams are in ``test_torch_cli_data.py``.
+contextmod``. The flags refused until their modules were ported are
+accepted (sharded and pipeline serving run in ``test_torch_cli_parallel.py``),
+and ``--wire u8`` alone gets the JAX CLI's refusal. The data flags' seams
+are in ``test_torch_cli_data.py``.
 """
 
 
@@ -59,11 +59,12 @@ def test_cli_energy_sep_half_runs(tmp_path):
     assert lines[1].startswith("K=2+rectify (half engine):")
 
 
-# refused until the mirror DAE and the context module, the data path
-# and utils/ were ported; only the item-12 flags are refused now
+# refused until the mirror DAE and the context module, the data path,
+# utils/ and parallel/ were ported; none is refused now
 PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tied"], ["--data-root", "x"],
                 ["--packed", "x"], ["--dae-mirror-npz", "x"], ["--fcn-reference-npz", "x"],
-                ["--fcn-flip-deconvs"], ["--dump-dir", "x"], ["--dump-trajectory"])
+                ["--fcn-flip-deconvs"], ["--dump-dir", "x"], ["--dump-trajectory"], ["--devices", "2"], ["--pp"],
+                ["--pp-stages", "3"], ["--pp-microbatches", "4"])
 
 
 @pytest.mark.parametrize("flags", [
@@ -75,7 +76,7 @@ PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tied"], 
 def test_cli_rejects_unported_flags_naming_the_roadmap(flags, capsys, jcli):
     if flags in PORTED_FLAGS:
         args = tcli.parse_args(flags)
-        assert vars(args)[flags[0][2:].replace("-", "_")] == (flags[1] if len(flags) > 1 else True)
+        assert str(vars(args)[flags[0][2:].replace("-", "_")]) == (flags[1] if len(flags) > 1 else "True")
         return
     with pytest.raises(SystemExit) as e:
         tcli.parse_args(flags)

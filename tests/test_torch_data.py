@@ -356,7 +356,9 @@ def test_device_prefetch_on_the_cpu_keeps_order_and_copies_nothing():
 
 
 def test_device_prefetch_refuses_sharding_and_a_bad_depth():
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # a sharding is a parallel.sharding.Placement (the sharded path runs in
+    # test_torch_parallel.py)
+    with pytest.raises(TypeError, match="Placement"):
         next(device_prefetch([np.ones(1)], sharding=object(), device="cpu"))
     with pytest.raises(ValueError, match="depth"):
         next(device_prefetch([np.ones(1)], depth=0, device="cpu"))

@@ -51,10 +51,9 @@ CASES = {
     "fcn8_data_root": ("fcn8", ["--max-epochs", "1", "--data-root", "{root}"], None),
     "fcn8_profile_dir": ("fcn8", ["--max-epochs", "1", "--profile-dir", "{trace}"], None),
     "fcn8_reference_npz": ("fcn8", ["--max-epochs", "1", "--load-reference-npz", "{ref}"], None),
-    # refusals: a flag whose path is not ported names its item; --wire u8
-    # without --packed gets the JAX CLI's refusal
+    # refusals: --wire u8 without --packed gets the JAX CLI's refusal
+    # (--devices runs: test_torch_cli_parallel.py)
     "fcn8_wire": ("fcn8", ["--wire", "u8"], "--wire u8 requires --packed"),
-    "fcn8_devices": ("fcn8", ["--devices", "2"], "item 12"),
     # and the JAX demo's own validity checks
     "demo_half_no_stem": ("demo", ["--engine", "half"], "--engine half requires --dae-stem-pool >= 1"),
     "demo_half_mirror": ("demo", ["--engine", "half", "--dae-stem-pool", "1", "--arch", "mirror"],

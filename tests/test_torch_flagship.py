@@ -223,9 +223,12 @@ def test_predictor_from_npz(tmp_path):
 
 @pytest.mark.parametrize(
     "kw,exc",
-    [({"engine": "general", "mesh": object()}, NotImplementedError), ({"engine": "fused"}, ValueError),
+    # the mesh checks that need no launched group (the meshes run in
+    # test_torch_parallel.py and test_torch_pp.py): mesh with pp_mesh, and
+    # pp_mesh without a DAE, raise as in the JAX Predictor
+    [({"engine": "general", "mesh": object(), "pp_mesh": object()}, ValueError), ({"engine": "fused"}, ValueError),
      ({"dae_arch": "mirror", "engine": "half"}, ValueError), ({"dae_arch": "unet"}, ValueError),
-     ({"mesh": object()}, NotImplementedError), ({"pp_mesh": object()}, NotImplementedError),
+     ({"mesh": object()}, TypeError), ({"pp_mesh": object()}, ValueError),
      ({"batch_size": 0}, ValueError)],
 )
 def test_predictor_rejects_what_is_not_ported(kw, exc):

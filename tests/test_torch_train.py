@@ -256,10 +256,11 @@ def test_cli_trains_and_its_best_npz_loads_in_both_packages(tmp_path):
     assert labels.min() >= 0 and labels.max() < 11
 
 
-# refused until the score networks, the 'sep' tail step and the
-# data path were ported; only --devices is refused now
+# refused until the score networks, the 'sep' tail step, the data path
+# and parallel/ were ported; none is refused now (--devices runs in
+# test_torch_cli_parallel.py)
 PORTED_FLAGS = (["--arch", "mirror"], ["--arch", "contextmod"], ["--dae-tail", "sep"], ["--dae-tied"],
-                ["--packed", "x"], ["--data-root", "x"])
+                ["--packed", "x"], ["--data-root", "x"], ["--devices", "2"])
 
 
 @pytest.mark.parametrize("flags", [

@@ -261,9 +261,9 @@ def test_make_dae_train_step_rejects(bad):
     elif bad == "impl":
         kw["corruption_impl"] = "pallas"
         err = ValueError
-    else:
+    else:  # a mesh is a DeviceMesh of a launched group (DP runs in test_torch_parallel.py)
         kw["mesh"] = object()
-        err = NotImplementedError
+        err = TypeError
     with pytest.raises(err):
         make_dae_train_step(TINY_T, cfg, opt, **kw)
 
