@@ -11,7 +11,9 @@ accuracy demo, serves the mirror DAE and the context module, drives the
 data path (packed files on both wires, device prefetch, an EM dataset of two
 classes) and the weight import and profiling utilities, then the parallel
 layer: data-parallel training and serving, fc6/fc7 tensor parallelism and
-the pipeline, in ranks that share the card.
+the pipeline (serving, and gradients through it), in ranks that share the
+card; last, the measuring entry points: the bench, serving-bench and
+training-bench twins and entry().
 
 Run from the repository root with no arguments:
 
@@ -126,7 +128,7 @@ Phases:
                 with --fcn-reference-npz (the lines of --fcn-npz); one short
                 train_fcn8 twin epoch with --profile-dir, whose trace holds
                 CUDA kernel events
-Phases 21-24 run the parallel layer through parallel/launch.py in ranks
+Phases 21-25 run the parallel layer through parallel/launch.py in ranks
 that share the one card over gloo (NCCL takes one card a rank); each
 reference runs in rank 0, in one process, on the card; every time printed
 is that of ranks sharing one card, not a multi-card figure:
@@ -154,9 +156,35 @@ is that of ranks sharing one card, not a multi-card figure:
                 argmax agreement >= 0.999), beside the agreement with one
                 run of the whole batch; refine_tail launches only in the
                 refinement stage
+25. ppgrad   -- the gradient of mean(y_K^2) through make_pp_flagship (2
+                stages, M = 2, batch 4, f32, K = 5) in every FCN-8 and DAE
+                param, without and with remat, held to one process's
+                gradient over the same microbatches (1e-5 of each leaf's
+                largest) and remat to none; every rank returns the whole
+                gradient; refine_tail (the kernel's forward under autograd)
+                launched in the refinement stage only, again in the
+                backward under remat
 Each rank counts its own kernel launches; the kernel report adds them.
-Phases 4, 10, 12, 13, 16-20, 22 and 24 also assert that no refine_tail launch of
-theirs took the kernel's strided staging. Every phase asserts; any failure
+26. bench    -- the bench twin (tools/bench.py) as a user runs it, at its
+                default (batch 128), batch 8 and 32, --steps 0, --preset fast
+                and the general engine at batch 8 in score and energy mode:
+                its JSON lines; refine_tail launched (K+1) a half-engine
+                forward, K a general score forward, none in energy mode; the
+                batch-8 and -32 readings beside phase 6's; fc6 alone at
+                batch 8, 32 and 128 and its share of the forward
+27. sbench   -- the serve_bench twin (tools/serve_bench.py) at batch 32, 4
+                batches, 2 epochs, both wires: a packed file through the
+                native runtime and device_prefetch into the flagship; its
+                lines; refine_tail (K+1) a forward; the two wires' answers
+                (sum(argmax(y_K)) a batch) agree
+28. tbench   -- the train_bench twin (tools/train_bench.py) at batch 32,
+                crop 224, augment on and off, without and with remat: its
+                lines (images/s, GFLOPs an image, mfu_pct); K1 launched once
+                a DAE step
+29. entry    -- entry() (the flagship forward on its example arguments:
+                finite, a softmax a pixel) and python -m ...entry's line
+Phases 4, 10, 12, 13, 16-20, 22, 24-27 and 29 also assert that no refine_tail
+launch of theirs took the kernel's strided staging. Every phase asserts; any failure
 (in any rank) raises and the exit code is non-zero. The line before the last is the kernel
 report (JSON: each kernel's launches on its path, error, times, bound and
 what sets it), the last line the device report (JSON).
@@ -193,7 +221,7 @@ from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner,
 from iterative_inference_segm_tpu_torch.inference.predictor import Predictor
 from iterative_inference_segm_tpu_torch.inference.search import grid_search_eps_k, grid_search_eps_k_half
 from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_logits, init_dae
-from iterative_inference_segm_tpu_torch.models.fcn8 import dropout_masks, fcn8_apply, fcn8_logits, init_fcn8
+from iterative_inference_segm_tpu_torch.models.fcn8 import dropout_masks, fcn8_apply, fcn8_backbone, fcn8_logits, init_fcn8
 from iterative_inference_segm_tpu_torch.models.registry import init_score_template, score_kwargs, score_logits_fn
 from iterative_inference_segm_tpu_torch.ops import _build
 from iterative_inference_segm_tpu_torch.ops import corruption_kernel as ck
@@ -206,8 +234,14 @@ from iterative_inference_segm_tpu_torch.scripts import iterative_inference as cl
 from iterative_inference_segm_tpu_torch.scripts import pack_dataset as pack_cli
 from iterative_inference_segm_tpu_torch.scripts import train_dae as dae_cli
 from iterative_inference_segm_tpu_torch.scripts import train_fcn8 as fcn_cli
+from iterative_inference_segm_tpu_torch import entry as entry_point
+from iterative_inference_segm_tpu_torch.entry import flagship_params
+from iterative_inference_segm_tpu_torch.tools import bench as bench_tool
 from iterative_inference_segm_tpu_torch.tools import seed_replication, tail_bench
+from iterative_inference_segm_tpu_torch.tools import serve_bench as serve_tool
+from iterative_inference_segm_tpu_torch.tools import train_bench as train_tool
 from iterative_inference_segm_tpu_torch.tools import vpu_probe as probe_tool
+from iterative_inference_segm_tpu_torch.tools.timing import chained_ms, nvidia_smi
 from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer, to_device
 from iterative_inference_segm_tpu_torch.train.train_dae import (
     draw_step_randomness,
@@ -355,6 +389,12 @@ PATTERN_OPS = (
 )
 
 
+def cuda_ms(fn, iters: int) -> float:
+    """ms a call of ``fn`` on the card: the best of 3 chained blocks of
+    ``iters`` calls (``tools/timing.chained_ms``, the benches' timer)."""
+    return chained_ms(fn, iters, device="cuda", accumulate=False)[0]
+
+
 def phase(name: str, msg: str) -> None:
     print(f"[{name}] {msg}", flush=True)
 
@@ -369,14 +409,6 @@ def check_no_strided(tag: str) -> None:
     main path takes its strided staging."""
     if refine_tail.strided_launches:
         raise AssertionError(f"{tag}: {refine_tail.strided_launches} refine_tail launches took the strided staging")
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def clocks() -> str:
@@ -438,20 +470,6 @@ def sass_counts(lib) -> dict[str, dict[str, int]]:
             counts[name]["stg128"] += bool(re.search(r"\bSTG\.E\.128\b", line))
             counts[name]["stg32"] += bool(re.search(r"\bSTG\.E\s", line))
     return counts
-
-
-def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def split_flags(splits: dict) -> list[str]:
@@ -622,17 +640,6 @@ def run_kernel_phase(dev, fcn, dae, gdae):
     return worst, report
 
 
-def full_width_params(dev, dtype=torch.float32):
-    fcn = init_fcn8(torch.Generator().manual_seed(0), n_classes=N_CLASSES, fc_channels=4096,
-                    dtype=dtype, device=dev)
-    dae = init_dae(
-        torch.Generator().manual_seed(1), n_classes=N_CLASSES,
-        h_specs={"pool4": DAE_H_CHANNELS["pool4"]}, depth=3, stem_pool=1, tail="full",
-        dtype=dtype, device=dev,
-    )
-    return fcn, dae
-
-
 def run_serve_phase(dev, fcn, dae):
     pred = Predictor(
         fcn, dae, device=dev, engine="half", batch_size=BATCH, compute_dtype=torch.bfloat16,
@@ -700,16 +707,18 @@ def run_timing_phase(dev, fcn, dae, smi):
                                    compute_dtype=torch.bfloat16, with_labels=True)
 
     fwd, fwd_k0 = forward(K_STEPS), forward(0)
+    ips_of = {}
     for batch in (8, 32):
         x = torch.randn((batch, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev)
         with torch.inference_mode():
-            ms = cuda_time_ms(lambda: fwd(fcn, dae, x), iters=20)
-            ms_k0 = cuda_time_ms(lambda: fwd_k0(fcn, dae, x), iters=10)
-        ips = batch * 1000.0 / ms
+            ms = cuda_ms(lambda: fwd(fcn, dae, x), iters=20)
+            ms_k0 = cuda_ms(lambda: fwd_k0(fcn, dae, x), iters=10)
+        ips = ips_of[batch] = batch * 1000.0 / ms
         phase("timing", f"flagship bf16 K={K_STEPS} batch {batch}: {ms:.2f} ms/batch, "
               f"{ips:.1f} images/s; K=0 (FCN + rectification) {ms_k0:.2f} ms/batch; on {smi}; "
               f"clocks.sm, max, power, temp: {clocks()}")
     phase("timing", f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return ips_of
 
 
 def _labels_with_void(shape, gen):
@@ -769,9 +778,9 @@ def check_and_time_corrupt(name, fn, ref, src, kw, shape, flush, void=None, tag=
     del want
     cold, ahead_cold = tail_bench.device_times(lambda: fn(src, seed, **kw), flush=flush)
     warm, ahead_warm = tail_bench.device_times(lambda: fn(src, seed, **kw))
-    plain_ms = cuda_time_ms(lambda: ref(src, seed, **kw), 5)
+    plain_ms = cuda_ms(lambda: ref(src, seed, **kw), 5)
     out = torch.empty_like(got)
-    fill_ms = cuda_time_ms(lambda: out.fill_(0.5), 20)
+    fill_ms = cuda_ms(lambda: out.fill_(0.5), 20)
     nbytes = src.numel() * src.element_size() + got.numel() * got.element_size()
     ops = (CORRUPT_OPS + (name == "corrupt_onehot")) * got.numel()
     t = {"max_abs_err": err, "ms": statistics.median(cold), "warm_ms": warm[0], "plain_ms": plain_ms,
@@ -928,9 +937,9 @@ def run_train_timing(dev, fcn, smi):
     x, y = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
     rand = draw_step_randomness(torch.Generator().manual_seed(6), batch=TRAIN_BATCH, hw=(H, W),
                                 crop=CROP, p_gt=1.0)
-    step_ms = cuda_time_ms(lambda: train_step(dae, fcn, x, y, rand), iters=20)
+    step_ms = cuda_ms(lambda: train_step(dae, fcn, x, y, rand), iters=20)
     xc, yc = stages.prepare(x, y, rand)
-    probs, h = stages.features(fcn, xc)
+    probs, h = stages.features(fcn, xc)  # no probs: the gt regime reads none
     y_tilde = stages.corrupt(yc, probs, rand)
 
     def dae_fwd_bwd():
@@ -938,24 +947,17 @@ def run_train_timing(dev, fcn, smi):
         stages.loss(dae, y_tilde, h, yc)[0].backward()
 
     split = {
-        "crop+normalize": cuda_time_ms(lambda: stages.prepare(x, y, rand), iters=20),
-        "frozen FCN forward": cuda_time_ms(lambda: stages.features(fcn, xc), iters=20),
-        "corruption (K1)": cuda_time_ms(lambda: stages.corrupt(yc, probs, rand), iters=20),
-        "DAE forward+backward": cuda_time_ms(dae_fwd_bwd, iters=20),
-        "optimizer step": cuda_time_ms(opt.step, iters=20),
+        "crop+normalize": cuda_ms(lambda: stages.prepare(x, y, rand), iters=20),
+        "frozen FCN to pool4": cuda_ms(lambda: stages.features(fcn, xc), iters=20),
+        "corruption (K1)": cuda_ms(lambda: stages.corrupt(yc, probs, rand), iters=20),
+        "DAE forward+backward": cuda_ms(dae_fwd_bwd, iters=20),
+        "optimizer step": cuda_ms(opt.step, iters=20),
     }
-    pool5 = torch.randn((TRAIN_BATCH, CROP[0] // 32, CROP[1] // 32, 512), device=dev,
-                        dtype=torch.bfloat16)
-    with torch.no_grad():
-        fc6_ms = cuda_time_ms(lambda: conv2d(pool5, fcn["fc6"]["w"].to(torch.bfloat16),
-                                             fcn["fc6"]["b"].to(torch.bfloat16)), iters=20)
     ips = TRAIN_BATCH * 1000.0 / step_ms
     phase("timing", f"DAE train step bf16 batch {TRAIN_BATCH} crop {CROP[0]}: {step_ms:.2f} ms/step, "
           f"{ips:.1f} images/s; on {smi}; clocks.sm, max, power, temp: {clocks()}")
     for name, ms in split.items():
         phase("timing", f"  {name:22s} {ms:8.3f} ms  {100.0 * ms / step_ms:5.1f}% of the step")
-    phase("timing", f"  fc6 (7x7 conv on the {CROP[0] // 32}x{CROP[1] // 32} pool5 map) alone "
-          f"{fc6_ms:.3f} ms, {100.0 * fc6_ms / split['frozen FCN forward']:.1f}% of the FCN forward")
     return step_ms, ips
 
 
@@ -1298,7 +1300,7 @@ def run_general_phase(dev, fcn, smi):
                               compute_dtype=torch.bfloat16, dae_kwargs={"depth": 4})
         for batch in (4, 8):
             x = torch.randn((batch, H, W, 3), generator=torch.Generator().manual_seed(6)).to(dev)
-            ms = cuda_time_ms(lambda: refine(x), iters=10)
+            ms = cuda_ms(lambda: refine(x), iters=10)
             timing[(mode, batch)] = batch * 1000.0 / ms
             phase("general", f"general engine bf16 {mode} K={K_STEPS} batch {batch}: {ms:.2f} ms/batch, "
                   f"{timing[(mode, batch)]:.1f} images/s; on {smi}; clocks.sm, max, power, temp: {clocks()}")
@@ -1450,7 +1452,7 @@ def run_fcn_phase(dev, smi, workdir):
             rand = draw_fcn_randomness(torch.Generator().manual_seed(22), batch=TRAIN_BATCH, hw=(H, W),
                                        crop=crop, device=dev)
             torch.cuda.reset_peak_memory_stats()
-            ms = cuda_time_ms(lambda: train_step(params, x, y, rand), iters=10)
+            ms = cuda_ms(lambda: train_step(params, x, y, rand), iters=10)
             timing[crop[0], remat] = TRAIN_BATCH * 1000.0 / ms
             phase("fcn", f"FCN-8 train step bf16 batch {TRAIN_BATCH} crop {crop[0]} remat {remat}: {ms:.2f} "
                   f"ms/step, {timing[crop[0], remat]:.1f} images/s, peak device memory "
@@ -1463,7 +1465,7 @@ def run_fcn_phase(dev, smi, workdir):
     rand = draw_fcn_randomness(torch.Generator().manual_seed(22), batch=TRAIN_BATCH, hw=(H, W), crop=CROP,
                                device=dev)
     stages = train_step.stages
-    step_ms = cuda_time_ms(lambda: train_step(params, x, y, rand), iters=10)
+    step_ms = cuda_ms(lambda: train_step(params, x, y, rand), iters=10)
     xc, yc = stages.prepare(x, y, rand)
     masks = stages.masks(xc, rand)
 
@@ -1480,15 +1482,15 @@ def run_fcn_phase(dev, smi, workdir):
         conv2d(pool5, fc6["w"], fc6["b"]).backward(cot)
 
     split = {
-        "crop+normalize": cuda_time_ms(lambda: stages.prepare(x, y, rand), iters=10),
-        "dropout masks": cuda_time_ms(lambda: stages.masks(xc, rand), iters=10),
-        "forward": cuda_time_ms(lambda: stages.loss(params, xc, yc, masks), iters=10),
+        "crop+normalize": cuda_ms(lambda: stages.prepare(x, y, rand), iters=10),
+        "dropout masks": cuda_ms(lambda: stages.masks(xc, rand), iters=10),
+        "forward": cuda_ms(lambda: stages.loss(params, xc, yc, masks), iters=10),
     }
-    split["backward"] = cuda_time_ms(fwd_bwd, iters=10) - split["forward"]
-    split["Adam"] = cuda_time_ms(opt.step, iters=10)
+    split["backward"] = cuda_ms(fwd_bwd, iters=10) - split["forward"]
+    split["Adam"] = cuda_ms(opt.step, iters=10)
     with torch.no_grad():
-        fc6_fwd = cuda_time_ms(lambda: conv2d(pool5, fc6["w"], fc6["b"]), iters=10)
-    fc6_all = cuda_time_ms(fc6_fwd_bwd, iters=10)
+        fc6_fwd = cuda_ms(lambda: conv2d(pool5, fc6["w"], fc6["b"]), iters=10)
+    fc6_all = cuda_ms(fc6_fwd_bwd, iters=10)
     phase("fcn", f"FCN-8 train step split, bf16 batch {TRAIN_BATCH} crop {CROP[0]}: step {step_ms:.3f} ms "
           f"({TRAIN_BATCH * 1000.0 / step_ms:.1f} images/s)")
     for name, ms in split.items():
@@ -1727,7 +1729,7 @@ def run_arch_phase(dev, fcn, smi):
             refine = make_refiner(fcn8_apply, logits, fcn, params, eps=EPS, num_steps=K_STEPS, mode=mode,
                                   h_taps=taps, compute_dtype=torch.bfloat16, dae_kwargs=kwargs)
             x = torch.randn((GENERAL_BATCH, H, W, 3), generator=torch.Generator().manual_seed(6)).to(dev)
-            ms = cuda_time_ms(lambda: refine(x), iters=5)
+            ms = cuda_ms(lambda: refine(x), iters=5)
             timing[name, mode] = GENERAL_BATCH * 1000.0 / ms
             phase("arch", f"{name} general engine bf16 {mode} K={K_STEPS} batch {GENERAL_BATCH}: {ms:.2f} ms/batch, "
                   f"{timing[name, mode]:.1f} images/s; on {smi}; clocks.sm, max, power, temp: {clocks()}")
@@ -2164,7 +2166,7 @@ def par_dae_step(mesh, device, dtype, from_gt, seed):
     torch.backends.cudnn.deterministic = True
     n, r = axis_size(mesh, "data"), axis_index(mesh, "data")
     local = PAR_BATCH // n
-    fcn, _ = full_width_params(device)
+    fcn, _ = flagship_params(device)
     init = init_dae(torch.Generator().manual_seed(12), n_classes=N_CLASSES, h_specs={"pool4": DAE_H_CHANNELS["pool4"]},
                     depth=4, stem_pool=0, device=device)
     images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=PAR_BATCH, num_batches=1, seed=seed))
@@ -2273,7 +2275,7 @@ def par_serve(mesh, device, engine):
     """Predictor(mesh=...) at batch 8 over PAR_SERVE_IMAGES images (the half
     engine in bf16, the general in f32); rank 0 holds the gathered answer to
     the single-device Predictor at batch 8."""
-    fcn, dae = full_width_params(device)
+    fcn, dae = flagship_params(device)
     dtype = torch.bfloat16 if engine == "half" else torch.float32
     if engine == "general":
         dae = general_params(device)
@@ -2358,7 +2360,7 @@ def par_pp(mesh, device, engine, arch, microbatches, names=None, sizes=None, pre
     from iterative_inference_segm_tpu_torch.parallel.pp import make_pp_flagship, merge_microbatches, split_microbatches
 
     pmesh = make_mesh(names, sizes, device_type="cuda") if names else mesh
-    fcn, dae = full_width_params(device)
+    fcn, dae = flagship_params(device)
     half = engine == "half"
     dtype = torch.bfloat16 if half else torch.float32
     if not half:
@@ -2412,8 +2414,63 @@ def par_pp(mesh, device, engine, arch, microbatches, names=None, sizes=None, pre
     return out
 
 
+PPGRAD_BATCH = 4  # 2 microbatches of 2 frames at 360x480, f32
+
+
+def par_ppgrad(mesh, device):
+    """The gradient of mean(y_K ** 2) through the flagship pipeline (2
+    stages, half engine, score, K=5, f32, full width) in every FCN-8 and DAE
+    param, without and with remat. Rank 0 holds both to the gradient of the
+    same loss in one process (flagship_forward_fn over the same
+    microbatches) and to each other; every rank reports a checksum of the
+    gradient it returns (each must return the whole one) and its
+    refine_tail launches (the kernel's forward under autograd; with remat
+    the refinement stage runs it again in the backward)."""
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_index, make_mesh
+    from iterative_inference_segm_tpu_torch.parallel.pp import make_pp_flagship, merge_microbatches, split_microbatches
+
+    pmesh = make_mesh(("stage",), (2,), device_type="cuda")
+    # cuDNN's backward algorithms may add in any order; deterministic ones let the pipeline, remat and the
+    # one-process gradient differ only where the pipeline sums its microbatches' gradients
+    torch.backends.cudnn.deterministic = True
+    fcn, dae = flagship_params(device)
+    leaves = _leaves_of(fcn) + _leaves_of(dae)
+    for t in leaves:
+        t.requires_grad_(True)
+    images = np.random.default_rng(44).random((PPGRAD_BATCH, H, W, 3), dtype=np.float32)
+    x = split_microbatches(normalize_image(torch.from_numpy(images), CAMVID).to(device), 2)
+    kw = dict(eps=EPS, num_steps=K_STEPS, depth=3, compute_dtype=torch.float32)
+    out, grads = {"stage": axis_index(pmesh, "stage")}, {}
+    for remat in (False, True):
+        reset_tail_counts()
+        t0 = time.perf_counter()
+        _, yk = make_pp_flagship(pmesh, remat=remat, **kw)(fcn, dae, x)
+        loss = torch.mean(torch.square(merge_microbatches(yk)))
+        grads[remat] = (loss.item(), torch.autograd.grad(loss, leaves))
+        torch.cuda.synchronize()
+        out[f"launches_{int(remat)}"] = refine_tail.launches
+        out[f"strided_{int(remat)}"] = refine_tail.strided_launches
+        out[f"secs_{int(remat)}"] = time.perf_counter() - t0
+        out[f"checksum_{int(remat)}"] = sum(g.double().abs().sum().item() for g in grads[remat][1])
+    if _rank() != 0:
+        torch.backends.cudnn.deterministic = False
+        return out
+    fwd = flagship_forward_fn(**kw)
+    loss = sum(torch.sum(torch.square(fwd(fcn, dae, xm)[1])) for xm in x) / (PPGRAD_BATCH * H * W * N_CLASSES)
+    ref = torch.autograd.grad(loss, leaves)
+
+    def worst(a, b):
+        return max((u - v).abs().max().item() / max(v.abs().max().item(), 1e-30) for u, v in zip(a, b))
+
+    out.update(loss=grads[False][0], loss_rel=abs(grads[False][0] - loss.item()) / loss.item(),
+               grad_rel=worst(grads[False][1], ref), remat_rel=worst(grads[True][1], grads[False][1]),
+               nonzero=sum(int(bool(g.abs().max() > 0)) for g in grads[False][1]), leaves=len(leaves))
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
 def run_parallel_phases(smi):
-    """Phases 21-24 in four launches (2 ranks, 1 rank over NCCL, 3 ranks, 4
+    """Phases 21-25 in four launches (2 ranks, 1 rank over NCCL, 3 ranks, 4
     ranks); returns the launches each kernel made in the ranks, summed."""
     from iterative_inference_segm_tpu_torch.parallel.launch import launch_ranks
     from iterative_inference_segm_tpu_torch.parallel.mesh import MeshSpec
@@ -2439,6 +2496,7 @@ def run_parallel_phases(smi):
         ("pp_mirror", "par_pp", {"engine": "general", "arch": "mirror", "microbatches": 4, **stage2}),
         ("pp_predictor", "par_pp", {"engine": "half", "arch": "dae", "microbatches": 2, "predictor": True,
                                     **stage2}),
+        ("ppgrad", "par_ppgrad", {}),
     ], ("data",), (2,))
     r1, w1 = run([("dae_nccl", "par_dae_step", {"dtype": "float32", "from_gt": True, "seed": 35})], ("data",), (1,),
                  device="cuda", backend=None)
@@ -2539,10 +2597,216 @@ def run_parallel_phases(smi):
         if not ok:
             raise AssertionError(f"{name}: the pipeline beyond the one-process engine")
     phase("pp", f"phase 24 in {secs(r2, 'pp_half_m2', 'pp_half_m4', 'pp_general', 'pp_mirror', 'pp_predictor') + secs(r3, 'pp3_half', 'pp3_general') + secs(r4, 'dpxpp'):.1f} s in the ranks; {note}")
-    phase("parallel", f"phases 21-24: {time.perf_counter() - t_all:.1f} s wall in 4 launches "
+    # 25: gradients through the pipeline
+    g = [r["ppgrad"] for r in r2]
+    got = [(r["launches_0"], r["launches_1"]) for r in g]
+    want = [(2 * (K_STEPS + 1), 4 * (K_STEPS + 1)) if r["stage"] == 1 else (0, 0) for r in g]
+    if got != want or any(r["strided_0"] or r["strided_1"] for r in g):
+        raise AssertionError(f"ppgrad: refine_tail launched {got} in the ranks (no remat, remat); expected {want}")
+    launches["refine_tail"] += sum(a + b for a, b in got)
+    r0 = g[0]
+    same = all(r[f"checksum_{i}"] == r0[f"checksum_{i}"] for r in g for i in (0, 1))
+    phase("ppgrad", f"d mean(y_K^2) through make_pp_flagship (2 stages, M=2, batch {PPGRAD_BATCH} at {H}x{W}, f32, "
+          f"K={K_STEPS}) in all {r0['leaves']} FCN-8 and DAE leaves ({r0['nonzero']} nonzero): loss {r0['loss']:.7f}, "
+          f"rel to one process {r0['loss_rel']:.2e}; gradient against one process over the same microbatches, "
+          f"worst leaf {r0['grad_rel']:.2e} of its largest (limit {PAR_F32_TOL}); remat against none "
+          f"{r0['remat_rel']:.2e}; every rank returned the same gradient: {same}; refine_tail per rank {got}; "
+          f"{r0['secs_0']:.2f} s, remat {r0['secs_1']:.2f} s")
+    if not (r0["loss_rel"] <= PAR_F32_TOL and r0["grad_rel"] <= PAR_F32_TOL and r0["remat_rel"] <= PAR_F32_TOL
+            and same and r0["nonzero"] == r0["leaves"]):
+        raise AssertionError("ppgrad: the pipeline's gradient beyond one process's")
+    phase("ppgrad", f"phase 25 in {secs(r2, 'ppgrad'):.1f} s in the ranks; {note}")
+    phase("parallel", f"phases 21-25: {time.perf_counter() - t_all:.1f} s wall in 4 launches "
           f"({w2:.1f} s 2 ranks, {w1:.1f} s 1 rank over NCCL, {w3:.1f} s 3 ranks, {w4:.1f} s 4 ranks; each with "
           f"its ranks' start); {note}")
     return launches
+
+
+# phases 26-29: the measuring entry points, each as a user runs it (main(argv), its printed lines)
+BENCH_ITERS = 5  # the bench twin's chained block in this run (its default is 20)
+BENCH_WARMUP = 2  # the twin's default
+BENCH_CASES = (  # (name, argv, refine_tail launches a forward)
+    ("b128", [], K_STEPS + 1),
+    ("b8", ["--batch", 8], K_STEPS + 1),
+    ("b32", ["--batch", 32], K_STEPS + 1),
+    ("steps0", ["--steps", 0], 1),
+    ("fast", ["--preset", "fast"], K_STEPS + 1),
+    ("general", ["--engine", "general", "--batch", 8], K_STEPS),
+    ("energy", ["--engine", "general", "--mode", "energy", "--batch", 8], 0),
+)
+SBENCH_ARGV = ["--batch", 32, "--num-batches", 4, "--epochs", 2, "--wire", "both"]
+# the wires' sum(argmax(y_K)) a batch, relative: the u8 wire normalizes on the card and the runtime on the
+# host, within 1e-6 of each other (phase 18); rounded to bf16 for the FCN they differ in a last bit here and
+# there, which flips ~0.01% of the labels (3.1e-05 on an H100; the f32 wire equals the resident batch)
+SBENCH_SUM_TOL = 1e-4
+TBENCH_ARGV = ["--batches", 32, "--crops", 224, "--augment", "both", "--iters", 3, "--no-history"]
+ENTRY_LINE = "entry() OK (1, 360, 480, 11) torch.bfloat16"
+# refine_tail against its plain version at what each configuration that launches it hands it, at the batches
+# the phases run it: (name, the bench twin's argv or None for serve_bench's flagship, batches). --steps 0 makes
+# the default's rectification alone, energy mode no call
+BENCH_KERNEL_CASES = (
+    ("bench", [], (8, 32, 128)),
+    ("bench fast", ["--preset", "fast"], (128,)),
+    ("bench general", ["--engine", "general"], (8,)),
+    ("serve_bench", None, (SBENCH_ARGV[1],)),
+)
+
+
+def reset_counts() -> None:
+    reset_tail_counts()
+    ck.corrupt_onehot.launches = 0
+    ck.corrupt_probs.launches = 0
+
+
+def bench_kernel_cases(dev) -> float:
+    """refine_tail against its plain version on the card at the shapes,
+    dtypes and terms each of ``BENCH_KERNEL_CASES`` hands it: the calls
+    recorded on one image through the twin's own pipeline, then seeded maps
+    at each batch. Returns the worst max abs error."""
+    worst = 0.0
+    x = torch.randn((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    for name, argv, batches in BENCH_KERNEL_CASES:
+        if argv is None:
+            fcn, dae = flagship_params(dev)
+            flagship = serve_tool.build_flagship(serve_tool.parse_args([]))
+            with torch.inference_mode():
+                recs = tail_bench.record_layouts(lambda: flagship(fcn, dae, x))
+        else:
+            args = bench_tool.parse_args(argv)
+            fcn, dae = bench_tool.init_params(args, dev)
+            pipeline = bench_tool.build_pipeline(args)
+            recs = tail_bench.record_layouts(lambda: pipeline(fcn, dae, x))
+        del fcn, dae
+        for batch in batches:
+            for case in tail_bench.cases_at(dev, recs, batch, prefix=f"{name} "):
+                got, ref = case.kernel(), case.plain()
+                err, agree = check_kernel_case(case.name, got, ref, case.with_labels, case.y.dtype)
+                worst = max(worst, err)
+                phase("bench", f"refine_tail, {case.name}: y={tuple(case.y.shape)} u={tuple(case.u.shape)} "
+                      f"{str(case.u.dtype)[6:]} v {case.v is not None} b {case.b is not None} labels "
+                      f"{case.with_labels}: max_abs_err={err:.3e} argmax_agree={agree:.6f}")
+                del got, ref, case
+        torch.cuda.empty_cache()
+    return worst
+
+
+def run_bench_phase(dev, smi, timing_ips):
+    """refine_tail at the bench and serving shapes (``bench_kernel_cases``);
+    the bench twin's configurations (``bench_cases``); its batch-8 and -32
+    readings beside phase 6's; fc6 alone at batch 8, 32 and 128."""
+    worst = bench_kernel_cases(dev)
+    launches, readings = bench_cases(smi)
+    for b in (8, 32):
+        phase("bench", f"batch {b}: the bench twin {readings[f'b{b}']:.1f} images/s (best of 3 blocks of "
+              f"{BENCH_ITERS}), phase 6 {timing_ips[b]:.1f} (the same function, best of 3 blocks of 20)")
+    fcn, _ = flagship_params(dev)
+    with torch.inference_mode():
+        pools, _ = fcn8_backbone(fcn, torch.zeros((1, H, W, 3), device=dev), compute_dtype=torch.bfloat16)
+    p5 = tuple(pools["pool5"].shape[1:])
+    w6, b6 = fcn["fc6"]["w"].to(torch.bfloat16), fcn["fc6"]["b"].to(torch.bfloat16)
+    for b in (8, 32, 128):
+        x5 = torch.randn((b, *p5), device=dev, dtype=torch.bfloat16)
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: conv2d(x5, w6, b6), iters=10)
+        fwd_ms = b * 1e3 / readings[f"b{b}"]
+        phase("bench", f"fc6 alone (7x7 conv 512 -> 4096 on the {p5[0]}x{p5[1]} pool5 map, bf16) at batch {b}: "
+              f"{ms:.3f} ms, {100.0 * ms / fwd_ms:.1f}% of the twin's forward ({fwd_ms:.2f} ms); on {smi}")
+    return launches, readings, worst
+
+
+def bench_cases(smi):
+    """The bench twin's main at each of ``BENCH_CASES``, as a user runs it:
+    its JSON line (the card's stamp, JAX's keys but ``frontier``), and
+    refine_tail launched (K + 1) a half-engine forward, K a general score
+    forward, none in energy mode, over the warm-up and the 3 timed blocks."""
+    readings, launches = {}, 0
+    forwards = BENCH_WARMUP + 3 * BENCH_ITERS
+    for name, argv, per_forward in BENCH_CASES:
+        reset_counts()
+        lines, secs = run_cli(bench_tool.main, ["--no-history", "--iters", BENCH_ITERS, *argv])
+        rec = json.loads(lines[-1])
+        want = per_forward * forwards
+        if refine_tail.launches != want or ck.corrupt_onehot.launches or ck.corrupt_probs.launches:
+            raise AssertionError(f"bench {name}: refine_tail launched {refine_tail.launches}; expected {want}")
+        check_no_strided(f"bench {name}")
+        if rec["device"] != smi or not rec["value"] > 0 or set(rec) != {"metric", "value", "unit", "vs_baseline",
+                                                                        "device"}:
+            raise AssertionError(f"bench {name}: {lines[-1]}")
+        launches += refine_tail.launches
+        readings[name] = rec["value"]
+        phase("bench", f"{name}: {lines[-1]} (refine_tail {refine_tail.launches} = {per_forward} x {forwards} "
+              f"forwards; {secs:.1f} s wall)")
+    return launches, readings
+
+
+def run_sbench_phase(dev, fcn, dae, smi):
+    """The serve_bench twin over a packed file on both wires: its lines,
+    refine_tail (K + 1) a forward, the wires' sums equal."""
+    args = serve_tool.parse_args([str(a) for a in SBENCH_ARGV])
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        results, sums = serve_tool.run(args, fcn, dae, dev)
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        phase("sbench", line)
+    forwards = 1 + max(args.num_batches * args.epochs, 8) + 2 * args.epochs * args.num_batches
+    want = (K_STEPS + 1) * forwards
+    if refine_tail.launches != want:
+        raise AssertionError(f"sbench: refine_tail launched {refine_tail.launches}; expected {want}")
+    check_no_strided("sbench")
+    diff = max(abs(a - b) / a for a, b in zip(sums["e2e_f32"], sums["e2e_u8"]))
+    first = abs(sums["compute"] - sums["e2e_f32"][0]) / sums["compute"]
+    line = serve_tool.result_line(results, dev)
+    phase("sbench", f"{json.dumps(line)} (refine_tail {refine_tail.launches} = {K_STEPS + 1} x {forwards} forwards; "
+          f"sum(argmax(y_K)) a batch, f32 wire {sums['e2e_f32']}, u8 wire {sums['e2e_u8']}, resident "
+          f"{sums['compute']}: the wires differ by {diff:.2e}, resident vs e2e {first:.2e} (limit {SBENCH_SUM_TOL}); "
+          f"{secs:.1f} s wall)")
+    if diff > SBENCH_SUM_TOL or first > SBENCH_SUM_TOL or line["device"] != smi:
+        raise AssertionError("sbench: the wires' answers disagree")
+    return refine_tail.launches
+
+
+def run_tbench_phase(dev, smi):
+    """The train_bench twin at batch 32, crop 224, augment both, without
+    and with remat: K1 launched once a DAE step, refine_tail never."""
+    k1 = 0
+    for remat in (False, True):
+        reset_counts()
+        lines, secs = run_cli(train_tool.main, TBENCH_ARGV + (["--remat"] if remat else []))
+        recs = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        iters = TBENCH_ARGV[TBENCH_ARGV.index("--iters") + 1]
+        steps = 2 * (1 + 3 * iters)  # the DAE cell at augment on and off, a warm-up step and 3 blocks each
+        if ck.corrupt_onehot.launches != steps or refine_tail.launches or ck.corrupt_probs.launches:
+            raise AssertionError(f"tbench remat={remat}: K1 launched {ck.corrupt_onehot.launches}; expected {steps} "
+                                 "(one a DAE step)")
+        if len(recs) != 4 or any(r.get("oom") or "mfu_pct" not in r or r["device"] != smi for r in recs):
+            raise AssertionError(f"tbench remat={remat}: {lines}")
+        k1 += ck.corrupt_onehot.launches
+        for r in recs:
+            phase("tbench", json.dumps(r))
+        phase("tbench", f"remat={remat}: K1 launches {ck.corrupt_onehot.launches} = one a DAE step; {secs:.1f} s wall")
+    return k1
+
+
+def run_entry_phase(dev):
+    """entry(): the forward on its example arguments (finite, a softmax a
+    pixel), then ``python -m ...entry``'s line."""
+    reset_counts()
+    fn, example = entry_point.entry(dev)
+    y = fn(*example).float()
+    if tuple(y.shape) != (1, H, W, N_CLASSES) or not torch.isfinite(y).all() or (y.sum(-1) - 1).abs().max() > 2e-2:
+        raise AssertionError(f"entry(): y_K {tuple(y.shape)} not a finite softmax map")
+    del fn, example
+    lines, secs = run_cli(entry_point.main, [])
+    want = 2 * (K_STEPS + 1)
+    if lines[-1] != ENTRY_LINE or refine_tail.launches != want:
+        raise AssertionError(f"entry: {lines[-1]!r}, refine_tail {refine_tail.launches} (expected {want})")
+    check_no_strided("entry")
+    phase("entry", f"{lines[-1]}; y_K finite, a softmax a pixel; refine_tail {refine_tail.launches} = (K+1) x 2 "
+          f"forwards; {secs:.1f} s wall")
+    return refine_tail.launches
 
 
 def main() -> int:
@@ -2573,11 +2837,11 @@ def main() -> int:
     phase("build", f"g++ {host_lib.name} (native/input_runtime.cc, {' '.join(_build.HOST_FLAGS)})")
     phase("build", f"{len(libs)} kernels and the input runtime built in {time.perf_counter() - t0:.1f} s")
 
-    fcn, dae = full_width_params(dev)
+    fcn, dae = flagship_params(dev)
     worst, kreport = run_kernel_phase(dev, fcn, dae, general_params(dev))
     launches = run_serve_phase(dev, fcn, dae)
     run_parity_phase(fcn, dae)
-    run_timing_phase(dev, fcn, dae, smi)
+    timing_ips = run_timing_phase(dev, fcn, dae, smi)
 
     creport = run_corrupt_phase(dev)
     workdir = _build.BUILD_DIR / "chip_smoke_train"
@@ -2623,6 +2887,13 @@ def main() -> int:
     train_launches["corrupt_onehot"] += par["corrupt_onehot"]
     train_launches["corrupt_probs"] += par["corrupt_probs"]
 
+    bench_launches, _, bench_err = run_bench_phase(dev, smi, timing_ips)
+    launches += bench_launches
+    worst = max(worst, bench_err)
+    launches += run_sbench_phase(dev, fcn, dae, smi)
+    train_launches["corrupt_onehot"] += run_tbench_phase(dev, smi)
+    launches += run_entry_phase(dev)
+
     # No single PyTorch call computes any of the five functions, so each
     # library_ms is null. K3's entry is the half engine's step (bf16, the
     # K-a-chunk launch), timed cold, as are K1/K2's (the training crop) and
@@ -2659,7 +2930,7 @@ def main() -> int:
             "ms": t["cold_ms"], "plain_ms": t["plain_cold_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
-    phase("done", f"phases 1-24 in {time.perf_counter() - t_start:.1f} s wall, the build included")
+    phase("done", f"phases 1-29 in {time.perf_counter() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

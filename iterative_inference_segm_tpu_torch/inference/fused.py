@@ -66,16 +66,24 @@ def energy_gradient(denoise: Callable[[torch.Tensor], torch.Tensor], y: torch.Te
     """``d/dy 0.5 * ||y - denoise(y)||^2`` by ``torch.autograd.grad`` through
     the denoiser (the JAX package's ``jax.grad`` of the same energy). Runs
     with grad enabled locally; under ``torch.inference_mode`` autograd cannot
-    run, so that raises."""
+    run, so that raises. Where grad is enabled by the caller (a gradient
+    taken through the refinement, as through the pipeline's refinement
+    stage), the gradient is built with ``create_graph`` at a new node over
+    ``y`` (a view), so that it can be differentiated in turn: the inner
+    gradient counts only the paths through that node, and what ``denoise``
+    closes over stays a constant of it, as in JAX's ``jax.grad`` of the
+    energy, even where it depends on ``y`` upstream. Under
+    ``torch.no_grad`` it is a plain value of a detached ``y``."""
     if torch.is_inference_mode_enabled():
         raise RuntimeError(
             "energy mode differentiates through the DAE: run it under torch.no_grad(), "
             "not torch.inference_mode()"
         )
+    outer = torch.is_grad_enabled()
     with torch.enable_grad():
-        yy = y.detach().requires_grad_(True)
+        yy = y.view_as(y) if outer and y.requires_grad else y.detach().requires_grad_(True)
         energy = 0.5 * torch.sum(torch.square(yy - denoise(yy)))
-        (g,) = torch.autograd.grad(energy, yy)
+        (g,) = torch.autograd.grad(energy, yy, create_graph=outer)
     return g
 
 

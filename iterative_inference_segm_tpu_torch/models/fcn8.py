@@ -112,8 +112,10 @@ def fcn8_backbone(
     *,
     return_features: Sequence[str] = (),
     compute_dtype=torch.float32,
+    through: int = 5,
 ) -> tuple[dict, dict]:
-    """The VGG16 stack through pool5. Returns ``(pools, feats)``: pool3/4/5
+    """The VGG16 stack through pool5, or through pool ``through`` (0: the
+    input alone). Returns ``(pools, feats)``: those of pool3/4/5 it reached,
     for the head, and the requested backbone taps."""
     feats: dict = {}
     want = set(return_features)
@@ -123,6 +125,8 @@ def fcn8_backbone(
     pools: dict = {}
     pool_idx = 0
     for item in _VGG:
+        if pool_idx == through:
+            break
         if item == "P":
             pool_idx += 1
             h = max_pool(h, window=2, stride=2, ceil_mode=True)
@@ -133,7 +137,20 @@ def fcn8_backbone(
             continue
         p = params[item[0]]
         h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
-    return {k: pools[k] for k in ("pool3", "pool4", "pool5")}, feats
+    return {k: pools[k] for k in ("pool3", "pool4", "pool5") if k in pools}, feats
+
+
+def backbone_depth(taps: Sequence[str]) -> int | None:
+    """The last pool that the taps ``taps`` need (0 for the input alone), or
+    None if one of them lies in the head (fc7)."""
+    depth = 0
+    for tap in taps:
+        if tap == "input":
+            continue
+        if not (tap.startswith("pool") and tap[4:].isdigit() and 1 <= int(tap[4:]) <= 5):
+            return None
+        depth = max(depth, int(tap[4:]))
+    return depth
 
 
 def fc_shape(x_shape: Sequence[int], fc_channels: int) -> tuple[int, int, int, int]:

@@ -18,8 +18,9 @@ version. ``refine_tail.launches`` counts kernel launches;
 row-packed (class stride 1, pixel stride C) and went through the kernel's
 element-by-element staging instead of its 16-byte copies. Set
 ``refine_tail.layouts`` to a list and each call appends the layouts of its
-maps to it (``layout``; ``tools/tail_bench.py`` records what the engines
-hand the kernel this way); it is None otherwise.
+maps to it (``layout``), with its labels flag and whether it was given
+``w`` and ``b`` (``tools/tail_bench.py`` records what the engines hand the
+kernel this way); it is None otherwise.
 
 The plain version takes any class count. The kernel takes up to
 ``MAX_CLASSES`` = 128, the cap of the JAX package's Pallas kernels (up to 32
@@ -29,6 +30,12 @@ of more classes raises, naming the limit.
 ``u`` has ``y``'s dtype, or is bfloat16 beside a float32 ``y``: the general
 engine hands the kernel the DAE's bf16 logits, which it widens in registers
 exactly as ``.float()`` would, instead of a cast pass over the map.
+
+Gradients: on a CUDA tensor that takes part in autograd (grad enabled and an
+input requiring grad) the forward is still the kernel's launch, and the
+backward recomputes ``refine_tail_reference`` from the saved inputs and
+differentiates it in plain PyTorch (the TPU kernel had no backward either:
+XLA differentiated the JAX code). The labels carry no gradient.
 """
 
 from __future__ import annotations
@@ -178,6 +185,44 @@ def _launch(u, y, eps, v, w, b, with_labels):
     return (out, labels) if with_labels else out
 
 
+class _KernelWithPlainBackward(torch.autograd.Function):
+    """Forward: the kernel. Backward: the plain version's gradient at the
+    saved inputs (``create_graph`` when the backward itself is recorded)."""
+
+    @staticmethod
+    def forward(ctx, u, y, v, w, b, eps, with_labels):
+        ctx.eps = eps
+        ctx.save_for_backward(u, y, v, w, b)
+        out = _launch(u, y, eps, v, w, b, with_labels)
+        if with_labels:
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out, *_labels_grad):
+        saved = ctx.saved_tensors
+        wanted = [i for i, t in enumerate(saved) if t is not None and ctx.needs_input_grad[i]]
+        grads = [None] * 5
+        if not wanted or grad_out is None:
+            return (*grads, None, None)
+        higher = torch.is_grad_enabled()  # the backward itself is being recorded
+        with torch.enable_grad():
+            # a recorded backward differentiates through the saved inputs' own graphs
+            inputs = list(saved) if higher else [
+                t.detach().requires_grad_(i in wanted) if t is not None else None for i, t in enumerate(saved)]
+            u, y, v, w, b = inputs
+            out = refine_tail_reference(u, y, ctx.eps, v=v, w=w, b=b)
+            got = torch.autograd.grad(out, [inputs[i] for i in wanted], grad_out, allow_unused=True,
+                                      create_graph=higher)
+        for i, g in zip(wanted, got):
+            grads[i] = g
+        return (*grads, None, None)
+
+
+def _tracks_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
 def refine_tail(
     u: torch.Tensor,
     y: torch.Tensor,
@@ -195,12 +240,15 @@ def refine_tail(
     Returns ``y'`` (contiguous, y.dtype) or ``(y', labels)``."""
     _check(u, y, v, w, b)
     if refine_tail.layouts is not None:
-        refine_tail.layouts.append({"u": layout(u), "v": layout(v), "y": layout(y), "labels": with_labels})
+        refine_tail.layouts.append({"u": layout(u), "v": layout(v), "y": layout(y), "labels": with_labels,
+                                    "w": w is not None, "b": b is not None})
     if y.device.type == "cpu":
         return refine_tail_reference(u, y, eps, v=v, w=w, b=b, with_labels=with_labels)
     if y.device.type != "cuda":
         raise ValueError(f"refine_tail: no kernel for device {y.device}")
     check_kernel_classes("refine_tail", int(y.shape[3]))
+    if _tracks_grad(u, y, v, w, b):
+        return _KernelWithPlainBackward.apply(u, y, v, w, b, eps, with_labels)
     return _launch(u, y, eps, v, w, b, with_labels)
 
 

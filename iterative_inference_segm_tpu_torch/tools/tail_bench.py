@@ -38,6 +38,7 @@ round, to show the spread within one process):
 
 from __future__ import annotations
 
+import dataclasses
 import statistics
 import subprocess
 import sys
@@ -87,6 +88,40 @@ def layouts_of(fn) -> list[dict]:
         rt.refine_tail.layouts = None
 
 
+def record_layouts(fn) -> list[dict]:
+    """The distinct records of the ``refine_tail`` calls ``fn`` makes, in
+    the order first made."""
+    out = []
+    for rec in layouts_of(fn):
+        if rec not in out:
+            out.append(rec)
+    return out
+
+
+def cases_at(dev, recs: list[dict], batch: int, seed: int = 0, prefix: str = "") -> list[Case]:
+    """Seeded maps at each recorded call's shapes and dtypes
+    (``record_layouts``) with batch ``batch``, given the terms the call was
+    given (``v``, ``w``, ``b``) and its labels flag; drawn on ``dev`` and
+    row-packed, as the engines lay them out."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(shape, dtype, scale=3.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    cases = []
+    for rec in recs:
+        (_, h, wd, c), (_, hu, wu, _) = rec["y"]["shape"], rec["u"]["shape"]
+        dt = {k: getattr(torch, rec[k]["dtype"]) for k in ("u", "v", "y") if rec[k] is not None}
+        y = torch.softmax(draw((batch, h, wd, c), torch.float32), -1).to(dt["y"])
+        u = draw((batch, hu, wu, c), dt["u"])
+        v = draw((batch, h, wd, c), dt["v"]) if rec["v"] is not None else None
+        w = draw((c, c), torch.float32, 0.3) if rec["w"] else None
+        b = draw((c,), torch.float32, 0.5) if rec["b"] else None
+        site = "rect" if rec["labels"] else "step"
+        cases.append(Case(f"{prefix}{site} b{batch} {rec['y']['dtype']}", u, y, v, w, b, rec["labels"]))
+    return cases
+
+
 def full_width_models(dev):
     """FCN-8 (fc 4096), the flagship DAE (stem 1, depth 3) and the general
     engine's DAE (stem 0, depth 4), random from fixed seeds."""
@@ -127,25 +162,19 @@ def record_main_path(dev, fcn, flag_dae, gen_dae, hw=(360, 480)) -> dict:
 
 
 def main_path_cases(dev, seen: dict, seed: int = 0) -> list[Case]:
-    """Seeded maps at each site's shapes, in bf16 and f32 (the general
-    engine's u in bf16 beside an f32 y, as it runs, and all-f32 as before),
-    laid out as the engines lay them out (row-packed NHWC)."""
-    g = torch.Generator().manual_seed(seed)
+    """Seeded maps at each site's shapes (``cases_at``) at ``SITE_BATCH``,
+    in bf16 and f32 (the general engine's u in bf16 beside an f32 y, as it
+    runs, and all-f32 as before), named ``<site>_<bf16|f32>``."""
     cases = []
     for site in ("step", "rect", "general"):
         rec = seen[site]
-        bsz = SITE_BATCH[site]
-        (_, h, wd, c), (_, hu, wu, _) = rec["y"]["shape"], rec["u"]["shape"]
-        for tag, dt_y, dt_u in (("bf16", torch.bfloat16, torch.bfloat16),
-                                ("f32", torch.float32, torch.float32)):
+        for tag, dt_y, dt_u in (("bf16", "bfloat16", "bfloat16"), ("f32", "float32", "float32")):
             if site == "general" and tag == "bf16":
-                dt_y = torch.float32  # the engine's iterate stays f32; its logits are bf16
-            y = torch.softmax(torch.randn((bsz, h, wd, c), generator=g) * 3.0, -1).to(dev, dt_y)
-            u = (torch.randn((bsz, hu, wu, c), generator=g) * 3.0).to(dev, dt_u)
-            v = None
-            if rec["v"] is not None:
-                v = (torch.randn((bsz, h, wd, c), generator=g) * 3.0).to(dev, dt_y)
-            cases.append(Case(f"{site}_{tag}", u, y, v, with_labels=rec["labels"]))
+                dt_y = "float32"  # the engine's iterate stays f32; its logits are bf16
+            as_run = {**rec, "u": {**rec["u"], "dtype": dt_u}, "y": {**rec["y"], "dtype": dt_y},
+                      "v": rec["v"] and {**rec["v"], "dtype": dt_y}}
+            (case,) = cases_at(dev, [as_run], SITE_BATCH[site], seed=seed + len(cases))
+            cases.append(dataclasses.replace(case, name=f"{site}_{tag}"))
     return cases
 
 

@@ -13,7 +13,9 @@ conditioned on frozen FCN-8 features. Three corruption regimes, chosen by
 
 Loss: void-masked crossentropy of the DAE output against the clean ground
 truth. The frozen FCN runs inside the step under ``torch.no_grad`` without
-dropout; the DAE's backward is plain autograd through cuDNN.
+dropout (in the ground-truth regime only as far as the DAE's deepest tap:
+its probabilities are not read); the DAE's backward is plain autograd
+through cuDNN.
 
 Randomness is explicit. A step takes a ``StepRandomness`` (the uint32 noise
 seed, the per-sample crop offsets and flips, the mix regime's coin), which
@@ -46,7 +48,7 @@ from iterative_inference_segm_tpu_torch.data.pipeline import (
     draw_crop_and_flip,
     normalize_image,
 )
-from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
+from iterative_inference_segm_tpu_torch.models.fcn8 import backbone_depth, fcn8_apply, fcn8_backbone
 from iterative_inference_segm_tpu_torch.models.registry import (
     checkpoint_meta,
     init_score_template,
@@ -202,8 +204,17 @@ def make_dae_train_step(
             images = normalize_image(images, cfg, input_scale=input_scale)
         return images, labels
 
+    # the ground-truth regime reads no probabilities: the frozen FCN runs
+    # only as far as the deepest tap (XLA drops the unread rest of the JAX
+    # step's forward by itself); probs are then None
+    depth = backbone_depth(h_taps) if p_gt >= 1.0 else None
+
     def features(fcn_params, images):
         with torch.no_grad():
+            if depth is not None:
+                _, h = fcn8_backbone(fcn_params, images, return_features=h_taps,
+                                     compute_dtype=tcfg.compute_dtype, through=depth)
+                return None, h
             return fcn8_apply(
                 fcn_params, images, return_features=h_taps, compute_dtype=tcfg.compute_dtype
             )

@@ -3,9 +3,14 @@ and kernel names, and the edge cases of K3, K1/K2 and K4/K5 it holds on the
 card (phases 3, 7 and 11; run here through the wrappers, which take the
 plain versions on the CPU); the unpool tie cases (17); the check of the two
 wires, the device's idle share (18) and the inverse converters (20); and
-the checks of the parallel phases (21-24) over every rank's results, with
+the checks of the parallel phases (21-25) over every rank's results, with
 a stand-in for the launcher: the launches they add up, and a spoiled
-result in any one rank failing the run."""
+result in any one rank failing the run; and the checks of the measuring
+entry points' phases (26-29) over stand-ins for the twins: the launches
+each configuration must make, and a wrong count, stamp or line failing;
+refine_tail held at the shapes each bench configuration hands it."""
+
+import json
 
 import pytest
 
@@ -253,6 +258,12 @@ def _fake_launch(plant=None):
                 elif fname == "par_tp":
                     res.update(logits_rel=0.0, loss_rel=0.0, grad_rel=0.0, grad_leaf="fc6/w", held=50, whole=100,
                                moments=100, step_s=0.1, shapes={"fc6": (2048,), "fc7": (4096, 2048)})
+                elif fname == "par_ppgrad":
+                    per = (chip_smoke.K_STEPS + 1) * (r % 2)  # the refinement stage launches the kernel
+                    res.update(stage=r % 2, launches_0=2 * per, launches_1=4 * per, strided_0=0, strided_1=0,
+                               checksum_0=5.0, checksum_1=5.0, secs_0=1.0, secs_1=1.0)
+                    if r == 0:
+                        res.update(loss=0.05, loss_rel=0.0, grad_rel=3e-7, remat_rel=0.0, nonzero=63, leaves=63)
                 else:
                     sizes = kw.get("sizes", mesh.axis_sizes)
                     stage = r % sizes[-1]
@@ -269,9 +280,10 @@ def _fake_launch(plant=None):
 
 
 def test_parallel_phases_add_up_every_ranks_launches(monkeypatch, capsys):
-    """Phases 21-24 read each rank's counts: K1 in the f32 DP steps (2 ranks
+    """Phases 21-25 read each rank's counts: K1 in the f32 DP steps (2 ranks
     and 1 over NCCL), K2 in the bf16 one, refine_tail in the DP Predictor's
-    ranks and in the pipeline's refinement stage alone."""
+    ranks and in the pipeline's refinement stage alone (its forward under
+    autograd, again in the backward under remat)."""
     from iterative_inference_segm_tpu_torch.parallel import launch
 
     monkeypatch.setattr(launch, "launch_ranks", _fake_launch())
@@ -279,9 +291,10 @@ def test_parallel_phases_add_up_every_ranks_launches(monkeypatch, capsys):
     k = chip_smoke.K_STEPS
     serve = 2 * 2 * (k + 1) + 2 * 2 * k
     pp = (k + 1) * 2 + (k + 1) * 4 + k * 2 + k * 4 + (k + 1) * 4 + (k + 1) * 4 + k * 2 + 2 * (k + 1) * 2
-    assert got == {"refine_tail": serve + pp, "corrupt_onehot": 3, "corrupt_probs": 2}
+    ppgrad = (k + 1) * 2 + (k + 1) * 4
+    assert got == {"refine_tail": serve + pp + ppgrad, "corrupt_onehot": 3, "corrupt_probs": 2}
     out = capsys.readouterr().out
-    assert out.count("not a multi-card figure") >= 5 and "phases 21-24:" in out
+    assert out.count("not a multi-card figure") >= 6 and "phases 21-25:" in out
 
 
 @pytest.mark.parametrize("case,name,rank,spoil", [
@@ -299,6 +312,13 @@ def test_parallel_phases_add_up_every_ranks_launches(monkeypatch, capsys):
     ("pp_f32_off", "pp3_general", 0, {"max_abs": 1e-3}),
     ("pp_mirror_agreement", "pp_mirror", 0, {"agree": 0.99}),
     ("dpxpp_agreement", "dpxpp", 0, {"agree": 0.9}),
+    ("ppgrad_gradient_off", "ppgrad", 0, {"grad_rel": 1e-4}),
+    ("ppgrad_remat_off", "ppgrad", 0, {"remat_rel": 1e-4}),
+    ("ppgrad_loss_off", "ppgrad", 0, {"loss_rel": 1e-4}),
+    ("ppgrad_rank_returns_another_gradient", "ppgrad", 1, {"checksum_1": 4.0}),
+    ("ppgrad_a_leaf_without_gradient", "ppgrad", 0, {"nonzero": 62}),
+    ("ppgrad_launch_in_stage_0", "ppgrad", 0, {"launches_0": 1}),
+    ("ppgrad_no_recompute_under_remat", "ppgrad", 1, {"launches_1": 12}),
 ])
 def test_parallel_phases_fail_on_a_spoiled_rank(monkeypatch, case, name, rank, spoil):
     from iterative_inference_segm_tpu_torch.parallel import launch
@@ -317,3 +337,158 @@ def test_leaf_rel_names_the_worst_leaf():
     b = {"x": {"w": torch.tensor([1.0, 2.5])}, "y": {"b": torch.tensor([4.0])}}
     assert chip_smoke._leaf_rel(a, b) == (0.2, "x/w")
     assert chip_smoke._leaf_rel(a, a) == (0.0, "all")
+
+
+SMI = "NVIDIA H100 80GB HBM3, 700.00 W"
+
+
+def _fake_bench(spoil=None):
+    """A stand-in for the bench twin's main that launches refine_tail as the
+    configuration's forwards would, and prints a line stamped with SMI."""
+
+    def main(argv):
+        args = chip_smoke.bench_tool.parse_args(argv)
+        per = 0 if args.mode == "energy" else args.steps + (args.engine == "half")
+        chip_smoke.refine_tail.launches += per * (args.warmup + 3 * args.iters)
+        rec = {"metric": chip_smoke.bench_tool.metric(args), "value": 100.0 * args.batch, "unit": "images/sec/chip",
+               "vs_baseline": 0.1 * args.batch, "device": SMI}
+        if spoil:
+            spoil(args, rec)
+        print(json.dumps(rec))
+        return 0
+
+    return main
+
+
+def test_bench_cases_count_the_launches_of_each_configuration(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke.bench_tool, "main", _fake_bench())
+    launches, readings = chip_smoke.bench_cases(SMI)
+    k, forwards = chip_smoke.K_STEPS, chip_smoke.BENCH_WARMUP + 3 * chip_smoke.BENCH_ITERS
+    assert launches == forwards * (4 * (k + 1) + 1 + k)  # b128, b8, b32, fast; steps 0; general; energy none
+    assert readings["b128"] == 12800.0 and set(readings) == {name for name, _, _ in chip_smoke.BENCH_CASES}
+    assert capsys.readouterr().out.count("[bench]") == len(chip_smoke.BENCH_CASES)
+
+
+@pytest.mark.parametrize("what", ["launch", "device", "frontier"])
+def test_bench_cases_fail_on_a_wrong_count_stamp_or_key(monkeypatch, what):
+    def spoil(args, rec):
+        if args.batch == 8 and args.engine == "general" and args.mode == "energy":
+            if what == "launch":
+                chip_smoke.refine_tail.launches += 1
+            elif what == "device":
+                rec["device"] = "cpu"
+            else:
+                rec["frontier"] = "a TPU table"
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke.bench_tool, "main", _fake_bench(spoil))
+    with pytest.raises(AssertionError, match="bench energy"):
+        chip_smoke.bench_cases(SMI)
+
+
+@pytest.mark.parametrize("spoil", [None, "b128"])
+def test_bench_kernel_cases_hold_each_configuration_at_its_batches(monkeypatch, capsys, spoil):
+    """refine_tail at what each configuration hands it (recorded through the
+    twins' own pipelines at a small size), at each batch the phases run:
+    the folded half engine's step and rectification at batch 8, 32 and 128,
+    the fast preset's at 128, the general engine's step at 8, serve_bench's
+    at 32; a kernel wrong at batch 128 alone fails the run."""
+    from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, init_dae
+    from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
+
+    init = chip_smoke.bench_tool.init_params
+    monkeypatch.setattr(chip_smoke.bench_tool, "init_params", lambda args, dev: init(
+        type(args)(**{**vars(args), "fc_channels": 16, "dae_widths": [8, 16, 32]}), dev))
+    monkeypatch.setattr(chip_smoke, "flagship_params", lambda dev: (
+        init_fcn8(torch.Generator().manual_seed(0), n_classes=11, fc_channels=16),
+        init_dae(torch.Generator().manual_seed(1), n_classes=11, h_specs={"pool4": DAE_H_CHANNELS["pool4"]},
+                 depth=3, stem_pool=1, widths=(8, 16, 32))))
+    monkeypatch.setattr(chip_smoke, "H", 48)
+    monkeypatch.setattr(chip_smoke, "W", 64)
+    if spoil:
+        kernel = chip_smoke.tail_bench.Case.kernel
+
+        def spoiled(case):
+            out = kernel(case)
+            y = out[0] if case.with_labels else out
+            if y.shape[0] == 128:
+                y[0, 0, 0] += 0.25
+            return out
+
+        monkeypatch.setattr(chip_smoke.tail_bench.Case, "kernel", spoiled)
+        with pytest.raises(AssertionError, match="bench step b128"):
+            chip_smoke.bench_kernel_cases("cpu")
+        return
+    assert chip_smoke.bench_kernel_cases("cpu") == 0.0
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "refine_tail, " in ln]
+    names = [ln.split("refine_tail, ")[1].split(":")[0] for ln in lines]
+    assert names == [f"bench {site} b{b} bfloat16" for b in (8, 32, 128) for site in ("step", "rect")] + [
+        "bench fast step b128 bfloat16", "bench fast rect b128 bfloat16", "bench general step b8 bfloat16",
+        "serve_bench step b32 bfloat16", "serve_bench rect b32 bfloat16"]
+    # the pool encoder's folded step takes (u, v), the stride encoder's (fast) also the bias b
+    assert all(("v True b True" if "fast" in ln else "v True b False") in ln
+               for ln in lines if " step b" in ln and "general" not in ln)
+
+
+@pytest.mark.parametrize("spoil", [None, "k1_short", "oom"])
+def test_tbench_phase_wants_one_k1_launch_a_dae_step(monkeypatch, spoil):
+    def main(argv):
+        args = chip_smoke.train_tool.parse_args(argv)
+        for crop in args.crops:
+            for augment in chip_smoke.train_tool.augment_settings(args):
+                for label in ("FCN-8", "DAE(stem1,d3)"):
+                    rec = {"metric": chip_smoke.train_tool.metric(args, label, crop, 32, augment), "value": 1.0,
+                           "mfu_pct": 1.0, "device": SMI}
+                    if spoil == "oom" and label == "FCN-8":
+                        rec = chip_smoke.train_tool.oom_line(args, crop, 32, augment) | {"device": SMI}
+                    print(json.dumps(rec))
+                    if label.startswith("DAE"):
+                        chip_smoke.ck.corrupt_onehot.launches += 1 + 3 * args.iters - (spoil == "k1_short")
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(chip_smoke.train_tool, "main", main)
+    if spoil is None:
+        assert chip_smoke.run_tbench_phase("cpu", SMI) == 2 * 2 * (1 + 3 * 3)
+    else:
+        with pytest.raises(AssertionError, match="tbench"):
+            chip_smoke.run_tbench_phase("cpu", SMI)
+
+
+@pytest.mark.parametrize("spoil", [None, "wires", "launches"])
+def test_sbench_phase_holds_the_wires_to_each_other(monkeypatch, spoil):
+    def run(args, fcn, dae, dev):
+        forwards = 1 + max(args.num_batches * args.epochs, 8) + 2 * args.epochs * args.num_batches
+        chip_smoke.refine_tail.launches += (chip_smoke.K_STEPS + 1) * forwards - (spoil == "launches")
+        sums = {"compute": 1000, "e2e_f32": [1000, 2000], "e2e_u8": [1000, 2000 + (spoil == "wires")]}
+        return {"compute": 1.0, "e2e_f32": 1.0, "e2e_u8": 1.0}, sums
+
+    monkeypatch.setattr(chip_smoke.serve_tool, "run", run)
+    monkeypatch.setattr(chip_smoke.serve_tool, "device_stamp", lambda dev: SMI)
+    if spoil is None:
+        assert chip_smoke.run_sbench_phase("cpu", None, None, SMI) == (chip_smoke.K_STEPS + 1) * 25
+    else:
+        with pytest.raises(AssertionError, match="sbench"):
+            chip_smoke.run_sbench_phase("cpu", None, None, SMI)
+
+
+def test_entry_phase_wants_the_jax_line(monkeypatch):
+    from iterative_inference_segm_tpu_torch.scripts import _parallel
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(_parallel, "check_device", lambda device: None)
+
+    def fake_entry(dev):
+        def forward(f, d, x):
+            chip_smoke.refine_tail.launches += chip_smoke.K_STEPS + 1
+            return torch.full((1, chip_smoke.H, chip_smoke.W, chip_smoke.N_CLASSES), 1.0 / chip_smoke.N_CLASSES,
+                              dtype=torch.bfloat16)
+
+        return forward, (None, None, None)
+
+    monkeypatch.setattr(chip_smoke.entry_point, "entry", fake_entry)
+    assert chip_smoke.run_entry_phase("cpu") == 2 * (chip_smoke.K_STEPS + 1)
+    monkeypatch.setattr(chip_smoke, "ENTRY_LINE", "entry() OK (1, 360, 480, 11) bfloat16")
+    with pytest.raises(AssertionError, match="entry"):
+        chip_smoke.run_entry_phase("cpu")

@@ -4,6 +4,8 @@ the same inputs and (bridged) weights: ``make_gpipe`` and
 gloo ranks) and 3 stages (3 ranks) on the half and the general engine,
 DP x PP on a ('data', 'stage') mesh of (2, 2) (4 ranks), and
 ``Predictor(pp_mesh=...)``; the JAX side runs on as many faked CPU devices.
+The toy's gradient is held here too; ``tests/test_torch_pp_grad.py`` holds
+the gradients of the rest.
 
 Tolerances: f32 within 1e-4 (relative and absolute), the whole-path
 tolerance the port's sequential flagship is held to JAX's with
@@ -133,6 +135,8 @@ def jax_runs(p):
 
     pipe = jax.jit(make_gpipe((s0, s1), jmesh(("stage",), (2,))))
     out["toy"] = [np.asarray(pipe((k0, k1), {"a": x}, {"a": jnp.zeros(x.shape[1:])})["a"]) for x in xs]
+    out["toy_grad"] = np.asarray(jax.grad(lambda k: jnp.sum(
+        pipe((k, k1), {"a": xs[0]}, {"a": jnp.zeros(xs[0].shape[1:])})["a"] ** 2))(k0))
 
     def stage(q, w):
         return {**w, "a": jnp.tanh(w["a"] @ q)}
@@ -222,8 +226,17 @@ def test_pipeline_misuse_raises_as_in_jax(both, case, match):
 
 @pytest.mark.parametrize("case", ["grad", "remat", "remat_stacked"])
 def test_gradients_through_the_pipeline_are_refused_naming_the_roadmap(both, case):
-    msg = two(both)[0]["toy"]["errors"][case]
-    assert msg.startswith("NotImplementedError") and "ROADMAP.md" in msg
+    """Refused until the reverse schedule was ported; now (the name kept)
+    the toy's gradient in k0 equals jax.grad of JAX's pipeline (rtol 1e-4,
+    atol 1e-5, as ``tests/test_pp.py``), and ``remat`` gives the gradient
+    without it (rtol 1e-5, atol 1e-6), heterogeneous and stacked, on every
+    rank. ``tests/test_torch_pp_grad.py`` holds the rest."""
+    for res in two(both):
+        got = res["toy"]["grads"][case]
+        if case == "grad":
+            np.testing.assert_allclose(got, both[1]["toy_grad"], rtol=1e-4, atol=1e-5)
+        else:
+            np.testing.assert_allclose(got[0], got[1], rtol=1e-5, atol=1e-6)
 
 
 def test_gpipe_stacked_matches_jax(both):

@@ -163,6 +163,36 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
     assert torch.equal(labels, got.argmax(-1).to(torch.int32))
 
 
+@pytest.mark.parametrize("with_labels", [False, True])
+def test_kernel_under_autograd_carries_the_plain_versions_gradient(monkeypatch, with_labels):
+    """On a CUDA tensor that takes part in autograd the wrapper launches the
+    kernel and differentiates the plain version in the backward. Here the
+    launch is stood in for by the plain version (a CPU cannot launch it):
+    the gradient in u, y, v and W equals autograd's through the plain
+    version, also taken twice (create_graph), and the labels carry none."""
+    import iterative_inference_segm_tpu_torch.ops.refine_tail as rt
+
+    launched = []
+    monkeypatch.setattr(rt, "_launch", lambda u, y, eps, v, w, b, labels: launched.append(1) or
+                        refine_tail_reference(u, y, eps, v=v, w=w, b=b, with_labels=labels))
+    g = torch.Generator().manual_seed(3)
+    u = torch.randn((2, 7, 9, C), generator=g, requires_grad=True)
+    y = torch.softmax(torch.randn((2, 5, 7, C), generator=g), -1).requires_grad_(True)
+    v = torch.randn((2, 5, 7, C), generator=g, requires_grad=True)
+    w = torch.randn((C, C), generator=g, requires_grad=True)
+    ct = torch.randn((2, 5, 7, C), generator=g)
+    out = rt._KernelWithPlainBackward.apply(u, y, v, w, None, EPS, with_labels)
+    if with_labels:
+        out, labels = out
+        assert not labels.requires_grad
+    got = torch.autograd.grad(torch.sum(out * ct), [u, y, v, w], create_graph=True)
+    want = torch.autograd.grad(torch.sum(refine_tail_reference(u, y, EPS, v=v, w=w) * ct), [u, y, v, w],
+                               create_graph=True)
+    assert launched == [1] and all(torch.equal(a, b) for a, b in zip(got, want))
+    second = torch.autograd.grad(torch.sum(got[0] ** 2), [w])[0]
+    assert torch.equal(second, torch.autograd.grad(torch.sum(want[0] ** 2), [w])[0])
+
+
 @pytest.mark.parametrize("u_hw", [(24, 32), (27, 37)])
 def test_reference_takes_bf16_u_beside_f32_y(jx, u_hw):
     """bf16 logits beside an f32 map (the general engine's step): bit-equal

@@ -3,7 +3,9 @@ CPU: the bound it times the kernel against (bytes and f32 operations from
 the shapes), the call-site recorder (through ``refine_tail.layouts``: the
 three sites the engines reach and the layouts they hand over; calls it
 cannot place raise), the main-path cases
-built from a recording, and its refusal without a card. The timings
+built from a recording, the distinct calls of a pipeline and seeded cases
+at their shapes and terms at another batch, and its refusal without a
+card. The timings
 themselves need the card (``chip_smoke.py`` phase 3).
 """
 
@@ -96,6 +98,33 @@ def test_main_path_cases_follow_the_recording(recorded):
     g = cases["general_bf16"]
     assert (g.u.dtype, g.y.dtype, g.v) == (torch.bfloat16, torch.float32, None) and g.y.shape[0] == 4
     assert torch.equal(g.kernel(), g.plain())  # CPU tensors take the plain version
+
+
+def test_record_layouts_keeps_each_distinct_call_with_its_terms():
+    """The folded flagship at K = 2 makes two identical step calls (u, v)
+    and one rectification (u, v, labels): two records, and seeded cases at
+    another batch with the same shapes, dtypes and terms (``w`` and ``b``
+    where a call was given them: the stride encoder's folded bias)."""
+    fcn = init_fcn8(torch.Generator().manual_seed(0), n_classes=11, fc_channels=16)
+    dae = init_dae(torch.Generator().manual_seed(1), n_classes=11, h_specs={"pool4": DAE_H_CHANNELS["pool4"]},
+                   depth=3, stem_pool=1, tail="full", widths=(8, 16, 32))
+    fwd = fused.flagship_forward_fn(num_steps=2, eps=0.1, depth=3, compute_dtype=torch.bfloat16, with_labels=True)
+    x = torch.randn((1, 48, 64, 3), generator=torch.Generator().manual_seed(2))
+    with torch.inference_mode():
+        assert len(tb.layouts_of(lambda: fwd(fcn, dae, x))) == 3
+        recs = tb.record_layouts(lambda: fwd(fcn, dae, x))
+    assert [(r["labels"], r["b"], r["w"], r["v"] is not None) for r in recs] == [
+        (False, False, False, True), (True, False, False, True)]
+    step, rect = tb.cases_at("cpu", recs, 3, prefix="t ")
+    assert (step.name, rect.name) == ("t step b3 bfloat16", "t rect b3 bfloat16")
+    assert tuple(step.y.shape) == (3, 24, 32, 11) and step.v.dtype == torch.bfloat16 and step.b is None
+    assert tuple(rect.y.shape) == (3, 48, 64, 11) and rect.with_labels and rect.w is None
+    assert tuple(rect.u.shape[1:]) == recs[1]["u"]["shape"][1:] and rect.u.dtype == torch.bfloat16
+    assert torch.equal(rect.kernel()[0], rect.plain()[0])  # CPU tensors take the plain version
+    (mixed,) = tb.cases_at("cpu", [dict(recs[0], w=True, b=True)], 2)
+    assert mixed.w.shape == (11, 11) and mixed.b.shape == (11,) and mixed.w.dtype == torch.float32
+    again = tb.cases_at("cpu", recs, 3, prefix="t ")[0]
+    assert torch.equal(again.u, step.u) and torch.equal(again.y, step.y)  # seeded
 
 
 def test_tool_refuses_without_a_card():

@@ -347,22 +347,35 @@ def gpipe_toy(mesh, device, params, xs):
     pipe = pp.make_gpipe((s0, s1), mesh)
     sends = count_calls(dist, "isend")
     out = [pipe((k0, k1), {"a": torch.from_numpy(x)}, {"a": torch.zeros(x.shape[1:])})["a"].numpy() for x in xs]
+    isend_calls = sends[0]
     errors = {
         "count": raises(lambda: pp.make_gpipe((s0, s1, s1), mesh)),
         "no_axis": raises(lambda: pp.make_gpipe((s0, s1), make_mesh(("data",), (2,)))),
         "no_axis_stacked": raises(lambda: pp.make_gpipe_stacked(s0, make_mesh(("data",), (2,)))),
         "no_axis_flagship": raises(lambda: pp.make_pp_flagship(make_mesh(("data",), (2,)), eps=0.1, num_steps=2)),
         "width": raises(lambda: pp.make_pp_flagship(make_mesh(("data", "stage"), (2, 1)), eps=0.1, num_steps=2)),
-        "grad": raises(lambda: pipe((k0.requires_grad_(True), k1), {"a": torch.from_numpy(xs[0])},
-                                    {"a": torch.zeros(xs[0].shape[1:])})),
-        "remat": raises(lambda: pp.make_gpipe((s0, s1), mesh, remat=True)),
-        "remat_stacked": raises(lambda: pp.make_gpipe_stacked(s0, mesh, remat=True)),
         "renorm": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, renorm="softmax")),
         "knobs": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, engine="general", fold_tail=True)),
         "engine": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, engine="fused")),
         "arch": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, dae_arch="mirror")),
     }
-    return {"out": out, "isend_calls": sends[0], "stage": axis_index(mesh, "stage"), "errors": errors}
+    x0 = torch.from_numpy(xs[0])
+
+    def grad(make, *, remat):  # d sum(out ** 2) / d k0, through the pipeline make(remat) builds
+        k = k0.clone().requires_grad_(True)
+        return torch.autograd.grad(torch.sum(make(remat)(k) ** 2), [k])[0].numpy()
+
+    def het(remat):
+        return lambda k: pp.make_gpipe((s0, s1), mesh, remat=remat)((k, k1), {"a": x0}, {"a": torch.zeros(x0.shape[1:])})["a"]
+
+    def stacked(remat):
+        stage = pp.make_gpipe_stacked(lambda p, w: {**w, "a": torch.tanh(w["a"] @ p)}, mesh, remat=remat)
+        return lambda k: stage(torch.stack([k, k1]), {"a": x0})["a"]
+
+    grads = {"grad": grad(het, remat=False), "remat": (grad(het, remat=True), grad(het, remat=False)),
+             "remat_stacked": (grad(stacked, remat=True), grad(stacked, remat=False))}
+    return {"out": out, "isend_calls": isend_calls, "stage": axis_index(mesh, "stage"), "errors": errors,
+            "grads": grads}
 
 
 def gpipe_stacked(mesh, device, stacked, x, batch_axis=None, resident=False, mesh_shape=None):
@@ -428,3 +441,60 @@ def cli_lines(mesh, device, module, argv):
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv, mesh=make_mesh(spec.axis_names, spec.axis_sizes), device=device)
     return {"rc": rc, "lines": buf.getvalue().splitlines()}
+
+
+# ------------------------------------------------------------------ pp gradients
+
+
+def _grads_of(loss, params):
+    """``loss``'s gradient for every leaf of the port's ``params`` trees, in
+    the JAX layout (numpy)."""
+    leaves = [t for tree in params for layer in tree.values() for t in layer.values()]
+    got = iter(torch.autograd.grad(loss, leaves))
+    return [params_to_jax({k: {kk: next(got) for kk in v} for k, v in tree.items()}) for tree in params]
+
+
+def gpipe_grad(mesh, device, params, x, remat=False):
+    """The two-stage toy's gradient of sum(out ** 2) in (k0, k1), and in the
+    stream."""
+    ks = [torch.from_numpy(p).requires_grad_(True) for p in params]
+    xs = torch.from_numpy(x).requires_grad_(True)
+
+    def s0(p, w, x):
+        return {**w, "a": torch.tanh(x["a"] @ p)}
+
+    def s1(p, w, x):
+        return {**w, "a": w["a"] @ p + 1.0}
+
+    out = pp.make_gpipe((s0, s1), mesh, remat=remat)(tuple(ks), {"a": xs}, {"a": torch.zeros(x.shape[1:])})["a"]
+    grads = torch.autograd.grad(torch.sum(out**2), ks + [xs])
+    return [g.numpy() for g in grads]
+
+
+def stacked_grad(mesh, device, stacked, x, remat=False, resident=False, batch_axis=None, mesh_shape=None):
+    """``make_gpipe_stacked``'s gradient of sum(out ** 2) in the stacked
+    params (a resident slice: this rank's own slice's gradient)."""
+    if mesh_shape is not None:
+        mesh = make_mesh(*mesh_shape)
+    ks = torch.from_numpy(stacked)
+    params = (pp.stage_slice(ks, mesh) if resident else ks.clone()).requires_grad_(True)
+    pipe = pp.make_gpipe_stacked(lambda p, w: {**w, "a": torch.tanh(w["a"] @ p)}, mesh, batch_axis=batch_axis,
+                                 remat=remat)
+    (g,) = torch.autograd.grad(torch.sum(pipe(params, {"a": torch.from_numpy(x)})["a"] ** 2), [params])
+    return {"grad": g.numpy(), "stage": axis_index(mesh, "stage")}
+
+
+def flagship_grad(mesh, device, jfcn, jdae, images, microbatches, kw, remat=False, batch_axis=None,
+                  wrt=("fcn", "dae")):
+    """The gradient of mean(y_K ** 2) through ``make_pp_flagship`` in the
+    params named in ``wrt`` (JAX layout), f32."""
+    fwd = pp.make_pp_flagship(mesh, compute_dtype=torch.float32, batch_axis=batch_axis, remat=remat, **kw)
+    nets = {"fcn": params_from_jax(jfcn), "dae": params_from_jax(jdae)}
+    for name in wrt:
+        for layer in nets[name].values():
+            for t in layer.values():
+                t.requires_grad_(True)
+    _, yk = fwd(nets["fcn"], nets["dae"], pp.split_microbatches(torch.from_numpy(images), microbatches))
+    loss = torch.mean(torch.square(pp.merge_microbatches(yk)))
+    grads = _grads_of(loss, [nets[name] for name in wrt])
+    return {"loss": loss.item(), **dict(zip(wrt, grads))}
