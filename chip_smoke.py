@@ -183,7 +183,23 @@ Each rank counts its own kernel launches; the kernel report adds them.
                 a DAE step
 29. entry    -- entry() (the flagship forward on its example arguments:
                 finite, a softmax a pixel) and python -m ...entry's line
-Phases 4, 10, 12, 13, 16-20, 22, 24-27 and 29 also assert that no refine_tail
+30. space    -- spatial (H) sharding at full width (fc 4096, C = 11,
+                360x480, f32, TF32 off) in 2 ranks sharing the card over
+                gloo, on ('data', 'space') (1, 2): the FCN-8 forward, the
+                general engine (K = 3) and the half engine (K = 5) on batch
+                2, and one DAE train step (gt regime, crop 224, K1 on the
+                gathered labels), each held to the same process unsharded
+                on the same card (y0 and y_K within 1e-4, argmax agreement
+                >= 0.999; the step's loss within 1e-5, Adam's first moment
+                per leaf within 1e-4 of its largest); the FCN forward's
+                exchanges against the contract (neighbour transfers only,
+                no all-gather at 12 /32 rows over 2 shards, no
+                all-reduce); K3 at every layout the sharded engines handed
+                it and K1 at the step's gathered labels against their plain
+                versions (phase 3's and phase 7's limits), outside the
+                counted runs; then python -m ...entry multichip 4 on the
+                card (4 ranks sharing it; its launches are not counted)
+Phases 4, 10, 12, 13, 16-20, 22, 24-27, 29 and 30 also assert that no refine_tail
 launch of theirs took the kernel's strided staging. Every phase asserts; any failure
 (in any rank) raises and the exit code is non-zero. The line before the last is the kernel
 report (JSON: each kernel's launches on its path, error, times, bound and
@@ -194,6 +210,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import io
 import json
 import pathlib
@@ -1828,7 +1845,8 @@ def profiled_training(fn, n_train: int):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from iterative_inference_segm_tpu_torch.train import train_dae as trainer
+    # the module (the package's ``train_dae`` is the trainer function)
+    trainer = importlib.import_module("iterative_inference_segm_tpu_torch.train.train_dae")
 
     def marked(*args, **kwargs):
         with record_function(COPY_MARK):
@@ -2809,6 +2827,215 @@ def run_entry_phase(dev):
     return refine_tail.launches
 
 
+# ---------------------------------------------------------------- phase 30: spatial (H) sharding
+
+SPACE_BATCH = 2
+SPACE_TOL = 1e-4  # y0 / y_K sharded against one process on the same card, f32, max abs
+SPACE_STEP_TOL = 1e-4  # the step's Adam first moment per leaf, of its largest (the loss: PAR_F32_TOL)
+MULTICHIP_LINE = "dryrun_multichip(4) OK"
+
+
+@contextlib.contextmanager
+def _comm_log():
+    """The exchanges the spatial ops make through parallel.comm while the
+    block runs: isend/irecv as (this group rank, peer), and the counts of
+    all-gathers and all-reduces."""
+    from iterative_inference_segm_tpu_torch.parallel import comm
+
+    log = {"isend": [], "irecv": [], "all_gather_cat": 0, "all_reduce_": 0}
+    saved = {name: getattr(comm, name) for name in log}
+
+    def peer_call(name):
+        def call(t, peer, group, **kw):
+            log[name].append((torch.distributed.get_rank(group), peer))
+            return saved[name](t, peer, group, **kw)
+        return call
+
+    def counted(name):
+        def call(*a, **kw):
+            log[name] += 1
+            return saved[name](*a, **kw)
+        return call
+
+    comm.isend, comm.irecv = peer_call("isend"), peer_call("irecv")
+    comm.all_gather_cat, comm.all_reduce_ = counted("all_gather_cat"), counted("all_reduce_")
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(comm, name, fn)
+
+
+@contextlib.contextmanager
+def _recorded_tail_calls():
+    """refine_tail's arguments at each distinct layout the engines hand it,
+    kept (cloned) for the check against the plain version; the kernel still
+    runs, and counts, as it does."""
+    from iterative_inference_segm_tpu_torch.inference import fused as fused_mod
+    from iterative_inference_segm_tpu_torch.inference import iterative as iterative_mod
+
+    tails = {}
+
+    def tail(u, y, eps, **kw):
+        key = (tuple(u.shape), u.dtype, tuple(y.shape), y.dtype, tuple(sorted((k, v is not None) for k, v in kw.items())))
+        if key not in tails:
+            tails[key] = (u.detach().clone(), y.detach().clone(), eps,
+                          {k: v.detach().clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()})
+        return refine_tail(u, y, eps, **kw)
+
+    fused_mod.refine_tail = iterative_mod.refine_tail = tail
+    try:
+        yield tails
+    finally:
+        fused_mod.refine_tail = iterative_mod.refine_tail = refine_tail
+
+
+def par_space(mesh, device):
+    """Phase 30 in one of 2 ranks on ('data', 'space') (1, 2): the sharded
+    FCN-8 forward (with its exchanges), general and half engines and DAE
+    step, their launches, then rank 0's unsharded runs and the kernels
+    against their plain versions at what the sharded runs handed them."""
+    from iterative_inference_segm_tpu_torch.inference.fused import make_half_refiner
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
+    from iterative_inference_segm_tpu_torch.parallel.sharding import gather_batch, shard_batch
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rows_of
+
+    torch.backends.cudnn.deterministic = True
+    group = axis_group(mesh, "space")
+    fcn, dae = flagship_params(device)
+    gdae = general_params(device)
+    x = torch.from_numpy(np.random.default_rng(51).random((SPACE_BATCH, H, W, 3), dtype=np.float32)).to(device)
+    xs = shard_batch(mesh, x, spatial_axis="space")
+    general = dict(eps=EPS, num_steps=3, h_taps=("pool4",))
+    half = dict(eps=EPS, num_steps=K_STEPS, h_taps=("pool4",), depth=3, compute_dtype=torch.float32)
+    images, labels = next(synthetic_batches(cfg=CAMVID, batch_size=SPACE_BATCH, num_batches=1, seed=52))
+    rand = draw_step_randomness(torch.Generator().manual_seed(53), batch=SPACE_BATCH, hw=(H, W), crop=CROP, p_gt=1.0)
+    init = init_dae(torch.Generator().manual_seed(12), n_classes=N_CLASSES, h_specs={"pool4": DAE_H_CHANNELS["pool4"]},
+                    depth=4, stem_pool=0, device=device)
+    tcfg = TrainConfig()
+    step_kw = dict(h_taps=("pool4",), sigma=SIGMA, from_gt=True, dae_depth=4, corruption_impl="kernel")
+    whole = (torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device))
+
+    def step_run(step_mesh, batch):
+        params = _clone(init)
+        opt = make_optimizer(tcfg, params)
+        with contextlib.redirect_stdout(io.StringIO()):
+            step, _ = make_dae_train_step(CAMVID, tcfg, opt, mesh=step_mesh, **step_kw)
+            loss = float(step(params, fcn, *batch, rand))
+        return loss, {f"{k}/{kk}": opt.state[t]["exp_avg"] for k, v in params.items() for kk, t in v.items()}, step
+
+    reset_counts()
+    out = {}
+    with _recorded_tail_calls() as tails:
+        t0 = time.perf_counter()
+        with torch.no_grad(), _comm_log() as log:
+            probs, _ = fcn8_apply(fcn, xs, space=rows_of(group, xs))
+            torch.cuda.synchronize()
+        out["fcn_s"], out["log"] = time.perf_counter() - t0, log
+        t0 = time.perf_counter()
+        g0, gk = make_refiner(fcn8_apply, score_logits_fn("dae"), fcn, gdae, space_group=group, **general)(xs)
+        torch.cuda.synchronize()
+        out["general_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        h0, hk = make_half_refiner(fcn8_apply, fcn, dae, space_group=group, **half)(xs)
+        torch.cuda.synchronize()
+        out["half_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loss, m1, step = step_run(mesh, shard_batch(mesh, whole, spatial_axis="space"))
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+    out.update(k3=refine_tail.launches, strided=refine_tail.strided_launches, k1=ck.corrupt_onehot.launches)
+    got = {name: gather_batch(mesh, t.contiguous(), spatial_axis="space").float()
+           for name, t in (("fcn", probs), ("g0", g0), ("gk", gk), ("h0", h0), ("hk", hk))}
+    # the kernels against their plain versions, outside the counted runs
+    tail_err, tail_agree = 0.0, 1.0
+    for u, y, eps, kw in tails.values():
+        want = refine_tail_reference(u, y, eps, **kw)
+        have = refine_tail(u, y, eps, **kw)
+        if kw.get("with_labels"):
+            tail_agree = min(tail_agree, (have[1] == want[1]).float().mean().item())
+            have, want = have[0], want[0]
+        tail_err = max(tail_err, (have.float() - want.float()).abs().max().item())
+    # K1's input in the sharded step: the gathered whole labels, cropped as the step crops them
+    _, lab = step.stages.prepare(*whole, rand)
+    kw = {"n_classes": N_CLASSES, "sigma": SIGMA}
+    k1_equal = torch.equal(ck.corrupt_onehot(lab, rand.noise_seed, **kw),
+                           ck.corrupt_onehot_kernel_reference(lab, rand.noise_seed, **kw))
+    out.update(tail_err=tail_err, tail_agree=tail_agree, tail_layouts=len(tails), k1_equal=k1_equal,
+               k1_shapes=[tuple(lab.shape)], loss=loss)
+    if _rank() == 0:
+        with torch.no_grad():
+            ref = {"fcn": fcn8_apply(fcn, x)[0]}
+        ref["g0"], ref["gk"] = make_refiner(fcn8_apply, score_logits_fn("dae"), fcn, gdae, **general)(x)
+        ref["h0"], ref["hk"] = make_half_refiner(fcn8_apply, fcn, dae, **half)(x)
+        out["err"] = {k: (got[k] - ref[k].float()).abs().max().item() for k in got}
+        out["agree"] = {k: (got[k].argmax(-1) == ref[k].float().argmax(-1)).float().mean().item() for k in got}
+        ref_loss, ref_m1, _ = step_run(None, whole)
+        out["loss_rel"] = abs(loss - ref_loss) / abs(ref_loss)
+        rel = {k: (m1[k] - v).abs().max().item() / max(v.abs().max().item(), 1e-30) for k, v in ref_m1.items()}
+        out["m1_rel"], out["m1_leaf"] = max(rel.values()), max(rel, key=rel.get)
+    return out
+
+
+def run_space_phase(smi):
+    """Phase 30: one launch of 2 ranks sharing cuda:0 over gloo, then the
+    multichip dry run as a user runs it; returns the kernel launches the
+    ranks made."""
+    from iterative_inference_segm_tpu_torch.parallel.launch import launch_ranks
+    from iterative_inference_segm_tpu_torch.parallel.mesh import MeshSpec
+
+    t_phase = time.perf_counter()
+    res = launch_ranks(par_cases, [("space", "par_space", {})], mesh=MeshSpec(("data", "space"), (1, 2)),
+                       device="cuda:0", backend="gloo", kernels=("refine_tail", "corruption"))
+    ranks_s = time.perf_counter() - t_phase
+    outs = [r["space"] for r in res]
+    r0 = outs[0]
+    note = f"ranks sharing one card ({smi}), a correctness reading, not a speed figure"
+    for i, o in enumerate(outs):
+        log = o["log"]
+        pairs = log["isend"] + log["irecv"]
+        if not pairs or any(abs(me - peer) != 1 for me, peer in pairs) or log["all_gather_cat"] or log["all_reduce_"]:
+            raise AssertionError(f"space: rank {i}'s FCN-8 forward exchanges {log} break the halo contract")
+        # K3: K general steps + (K+1) half-engine launches; K1: once in the step
+        if o["k3"] != 3 + K_STEPS + 1 or o["k1"] != 1 or o["strided"]:
+            raise AssertionError(f"space: rank {i} launched refine_tail {o['k3']} (strided {o['strided']}), "
+                                 f"corrupt_onehot {o['k1']}; expected {3 + K_STEPS + 1}, 1")
+        if not (o["tail_err"] <= F32_TOL and o["tail_agree"] >= MIN_ARGMAX_AGREE and o["k1_equal"]):
+            raise AssertionError(f"space: rank {i}'s kernels against their plain versions: refine_tail "
+                                 f"{o['tail_err']:.3e} (agree {o['tail_agree']}), corrupt_onehot equal {o['k1_equal']}")
+    log = r0["log"]
+    phase("space", f"FCN-8 forward, fc 4096, batch {SPACE_BATCH} at {H}x{W} f32 over ('data', 'space') (1, 2): "
+          f"rank 0 sent {len(log['isend'])} / received {len(log['irecv'])} halo blocks, all to its neighbour; "
+          f"all-gathers {log['all_gather_cat']}, all-reduces {log['all_reduce_']}; {r0['fcn_s']:.2f} s")
+    bad = []
+    for k in ("fcn", "g0", "gk", "h0", "hk"):
+        if not (r0["err"][k] <= SPACE_TOL and r0["agree"][k] >= MIN_ARGMAX_AGREE):
+            bad.append(k)
+    phase("space", "sharded against one process, max abs (argmax agreement): " + ", ".join(
+        f"{k} {r0['err'][k]:.2e} ({r0['agree'][k]:.6f})" for k in ("fcn", "g0", "gk", "h0", "hk"))
+        + f"; limit {SPACE_TOL} (>= {MIN_ARGMAX_AGREE}); general K=3 {r0['general_s']:.2f} s, half K={K_STEPS} "
+        f"{r0['half_s']:.2f} s")
+    phase("space", f"train_dae step gt, batch {SPACE_BATCH} crop {CROP[0]}, the CLI's DAE (depth 4), f32: loss "
+          f"{r0['loss']:.7f}, rel to one process {r0['loss_rel']:.2e} (limit {PAR_F32_TOL}); Adam exp_avg worst leaf "
+          f"{r0['m1_rel']:.2e} of its largest ({r0['m1_leaf']}, limit {SPACE_STEP_TOL}); K1 on the gathered labels "
+          f"{r0['k1_shapes']}; {r0['step_s']:.2f} s")
+    if bad or not (r0["loss_rel"] <= PAR_F32_TOL and r0["m1_rel"] <= SPACE_STEP_TOL):
+        raise AssertionError(f"space: sharded beyond one process ({bad}, step {r0['loss_rel']:.2e}, "
+                             f"{r0['m1_rel']:.2e})")
+    phase("space", f"kernels against their plain versions at the sharded runs' arguments: refine_tail at "
+          f"{r0['tail_layouts']} layouts max abs err {max(o['tail_err'] for o in outs):.3e} (limit {F32_TOL}), "
+          f"labels agree {min(o['tail_agree'] for o in outs):.6f}; corrupt_onehot bit-equal: "
+          f"{all(o['k1_equal'] for o in outs)}; launches per rank refine_tail {[o['k3'] for o in outs]}, "
+          f"corrupt_onehot {[o['k1'] for o in outs]}")
+    lines, secs = run_cli(entry_point.main, ["multichip", 4])
+    if lines[-1] != MULTICHIP_LINE:
+        raise AssertionError(f"multichip: {lines[-1]!r}")
+    phase("space", f"python -m ...entry multichip 4 (4 ranks sharing the card over gloo): {lines[-1]}; {secs:.1f} s")
+    phase("space", f"phase 30 in {time.perf_counter() - t_phase:.1f} s wall ({ranks_s:.1f} s the 2-rank launch with "
+          f"its ranks' start); {note}")
+    return {"refine_tail": sum(o["k3"] for o in outs), "corrupt_onehot": sum(o["k1"] for o in outs)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -2893,6 +3120,9 @@ def main() -> int:
     launches += run_sbench_phase(dev, fcn, dae, smi)
     train_launches["corrupt_onehot"] += run_tbench_phase(dev, smi)
     launches += run_entry_phase(dev)
+    space = run_space_phase(smi)
+    launches += space["refine_tail"]
+    train_launches["corrupt_onehot"] += space["corrupt_onehot"]
 
     # No single PyTorch call computes any of the five functions, so each
     # library_ms is null. K3's entry is the half engine's step (bf16, the
@@ -2930,7 +3160,7 @@ def main() -> int:
             "ms": t["cold_ms"], "plain_ms": t["plain_cold_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
-    phase("done", f"phases 1-29 in {time.perf_counter() - t_start:.1f} s wall, the build included")
+    phase("done", f"phases 1-30 in {time.perf_counter() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

@@ -95,46 +95,63 @@ def no_autograd(mode: str):
     return torch.no_grad() if mode == "energy" else torch.inference_mode()
 
 
-def half_logits(params: dict, x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+def _height(x: torch.Tensor, space) -> int:
+    return int(x.shape[1]) if space is None else space.height
+
+
+def _rows_for_kernel(u: torch.Tensor, height: int, space) -> torch.Tensor:
+    """Under H sharding, the rows of ``u`` (laid out as ``space``) that
+    cover the band of a ``height``-row map: the global centre crop in H,
+    done before ``refine_tail``, which then crops W alone (its offsets
+    are local). Without ``space``, ``u`` as it is: the kernel crops."""
+    return u if space is None else crop_to(u, height, int(u.shape[2]), space=space)
+
+
+def half_logits(params: dict, x: torch.Tensor, s: torch.Tensor, *, space=None) -> torch.Tensor:
     """Pooled-scale tail logits; ``s`` = dae_core(x). 'full': ``s +
-    score_input(x)``; 'sep': ``mix(s + dw3x3(x))``."""
+    score_input(x)``; 'sep': ``mix(s + dw3x3(x))``. ``space``: the layout
+    of an H-sharded ``x`` (``parallel.spatial.Rows``)."""
     if dae_tail_of(params) == "sep":
-        d = conv2d_depthwise(x, params["score_input_dw"]["w"])
+        d = conv2d_depthwise(x, params["score_input_dw"]["w"], space=space)
         p = params["mix"]
-        return conv2d(s + d, p["w"], p["b"], padding="SAME")
+        return conv2d(s + d, p["w"], p["b"], padding="SAME", space=space)
     p = params["score_input"]
-    return s + conv2d(x, p["w"], p["b"], padding="SAME")
+    return s + conv2d(x, p["w"], p["b"], padding="SAME", space=space)
 
 
-def _half_step_terms(params: dict, x: torch.Tensor, s: torch.Tensor):
+def _half_step_terms(params: dict, x: torch.Tensor, s: torch.Tensor, space=None):
     """``(u, v)`` with ``half_logits = u + v`` for the kernel: the 'full'
     tail's two addends, or the 'sep' tail's whole logits and no ``v``."""
     if dae_tail_of(params) == "sep":
-        return half_logits(params, x, s), None
+        return half_logits(params, x, s, space=space), None
     p = params["score_input"]
-    return s, conv2d(x, p["w"], p["b"], padding="SAME")
+    return s, conv2d(x, p["w"], p["b"], padding="SAME", space=space)
 
 
-def _full_tail_terms(params: dict, s_k: torch.Tensor, y: torch.Tensor):
+def _full_tail_terms(params: dict, s_k: torch.Tensor, y: torch.Tensor, space=None):
     """``(u, v)`` with ``full_logits = crop_to(u, H, W) + v``: for the 'full'
     tail ``u`` the uncropped ``up_stem`` deconv chain of ``s_k`` and ``v``
     score_input on y; for the 'sep' tail (the channel mix comes after the
-    crop and add) ``u`` the whole logits and no ``v``."""
+    crop and add) ``u`` the whole logits and no ``v``. ``space``: the
+    layout of an H-sharded ``y``; ``u`` is then cropped in H already."""
     if dae_tail_of(params) == "sep":
-        return dae_septail_logits(params, s_k, y.to(s_k.dtype)), None
+        return dae_septail_logits(params, s_k, y.to(s_k.dtype), space=space), None
     u = s_k
+    us = space and space.scaled(dae_stem_pool_of(params))
     for j in range(dae_stem_pool_of(params)):
-        u = conv_transpose2d(u, params[f"up_stem{j + 1}"]["w"], stride=2)
+        u = conv_transpose2d(u, params[f"up_stem{j + 1}"]["w"], stride=2, space=us)
+        us = us and us.at(2 * us.height)
     p = params["score_input"]
-    return u, conv2d(y.to(u.dtype), p["w"], p["b"], padding="SAME")
+    return (_rows_for_kernel(u, _height(y, space), us),
+            conv2d(y.to(u.dtype), p["w"], p["b"], padding="SAME", space=space))
 
 
-def full_logits(params: dict, s_k: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def full_logits(params: dict, s_k: torch.Tensor, y: torch.Tensor, *, space=None) -> torch.Tensor:
     """Full-resolution rectification logits: the DAE's stem tail applied
     once (``up_stem`` chain back to /1 + score_input on y, or the 'sep'
-    tail)."""
-    u, v = _full_tail_terms(params, s_k, y)
-    u = crop_to(u, int(y.shape[1]), int(y.shape[2]))
+    tail). ``space`` as in ``_full_tail_terms``."""
+    u, v = _full_tail_terms(params, s_k, y, space)
+    u = crop_to(u, _height(y, space), int(y.shape[2]), space=space)
     return u if v is None else u + v
 
 
@@ -165,58 +182,67 @@ def fold_half_tail(params: dict, *, encoder: str = "pool") -> dict:
     return fk
 
 
-def _folded_step_terms(fk: dict, pre, skip1, x, *, encoder: str):
-    """``(u, v, b)`` with ``folded_step_logits = crop_to(u) + b + v``."""
-    u = conv_transpose2d(pre, fk["up1p"], stride=2)
+def _folded_step_terms(fk: dict, pre, skip1, x, *, encoder: str, space=None):
+    """``(u, v, b)`` with ``folded_step_logits = crop_to(u) + b + v``;
+    ``space`` the layout of an H-sharded ``x`` (``pre`` at ``space.
+    scaled(1)``), ``u`` then cropped in H already."""
+    half = space and space.scaled(1)
+    u = conv_transpose2d(pre, fk["up1p"], stride=2, space=half)
+    u = _rows_for_kernel(u, _height(x, space), half and half.at(2 * half.height))
     if encoder == "pool":
         cat = torch.cat([skip1, x.to(skip1.dtype)], dim=-1)
-        return u, conv2d(cat, fk["cat_w"], fk["cat_b"], padding="SAME"), None
-    return u, conv2d(x, fk["si_w"], fk["si_b"], padding="SAME"), fk["b_out"]
+        return u, conv2d(cat, fk["cat_w"], fk["cat_b"], padding="SAME", space=space), None
+    return u, conv2d(x, fk["si_w"], fk["si_b"], padding="SAME", space=space), fk["b_out"]
 
 
-def folded_step_logits(fk: dict, pre, skip1, x, *, encoder: str) -> torch.Tensor:
+def folded_step_logits(fk: dict, pre, skip1, x, *, encoder: str, space=None) -> torch.Tensor:
     """Per-step denoiser logits from the predense core state (== out(core) +
     score_input(x) by linearity; see ``fold_half_tail``)."""
-    u, v, b = _folded_step_terms(fk, pre, skip1, x, encoder=encoder)
-    s = crop_to(u, int(v.shape[1]), int(v.shape[2]))
+    u, v, b = _folded_step_terms(fk, pre, skip1, x, encoder=encoder, space=space)
+    s = crop_to(u, _height(x, space), int(v.shape[2]), space=space)
     if b is not None:
         s = s + b.to(s.dtype)
     return s + v
 
 
-def folded_core_out(fk: dict, pre, skip1, *, encoder: str, out_hw: tuple[int, int]):
+def folded_core_out(fk: dict, pre, skip1, *, encoder: str, out_hw: tuple[int, int], space=None):
     """The standard core output (dae_core's post-``out`` result) recovered
-    from the predense state, for the rectification's ``full_logits``."""
-    s = conv_transpose2d(pre, fk["up1p"], stride=2)
+    from the predense state, for the rectification's ``full_logits``;
+    ``space`` the layout of the core's H-sharded input (``out_hw``
+    global)."""
+    half = space and space.scaled(1)
+    s = conv_transpose2d(pre, fk["up1p"], stride=2, space=half)
+    up = half and half.at(2 * half.height)
     if encoder == "pool":
-        sk = conv2d(skip1, fk["se1p_w"], fk["bp"], padding="SAME")
-        return crop_to(s, int(sk.shape[1]), int(sk.shape[2])) + sk
-    return crop_to(s, out_hw[0], out_hw[1]) + fk["b_out"].to(s.dtype)
+        sk = conv2d(skip1, fk["se1p_w"], fk["bp"], padding="SAME", space=space)
+        return crop_to(s, _height(sk, space), int(sk.shape[2]), space=up) + sk
+    return crop_to(s, out_hw[0], out_hw[1], space=up) + fk["b_out"].to(s.dtype)
 
 
-def _pooled_carry(params: dict, y0: torch.Tensor, state_dtype):
+def _pooled_carry(params: dict, y0: torch.Tensor, state_dtype, space=None):
     """Validate the engine's preconditions (stem_pool>=1 DAE, H and W
     divisible by the pooling factor) and build ``x0 = avg_pool^sp(y0)``.
-    Returns ``(sp, state_dtype, x0)``."""
+    Returns ``(sp, state_dtype, x0)``; ``space`` the layout of an H-sharded
+    ``y0`` (``x0`` at ``space.scaled(sp)``)."""
     sp = dae_stem_pool_of(params)
     if sp < 1:
         raise ValueError("half engine requires a stem_pool>=1 DAE")
     if state_dtype is None:
         state_dtype = y0.dtype
-    _, h, w, _ = y0.shape
+    h, w = _height(y0, space), int(y0.shape[2])
     if h % (1 << sp) or w % (1 << sp):
         raise ValueError(f"half engine requires H, W divisible by {1 << sp}")
     x0 = y0.to(state_dtype)
-    for _ in range(sp):
-        x0 = avg_pool(x0, window=2, stride=2)
+    for j in range(sp):
+        x0 = avg_pool(x0, window=2, stride=2, space=space and space.scaled(j))
     return sp, state_dtype, x0
 
 
-def _half_denoise(params: dict, core_fn: Callable, x: torch.Tensor, state_dtype) -> torch.Tensor:
+def _half_denoise(params: dict, core_fn: Callable, x: torch.Tensor, state_dtype, space=None) -> torch.Tensor:
     """The pooled engine's per-step denoiser ``r(x) = softmax(core(x) +
     tail_h(x))``, in plain PyTorch (differentiable)."""
     s = core_fn(x).to(state_dtype)
-    return torch.softmax(half_logits(params, x, s), -1)
+    return torch.softmax(half_logits(params, x, s, space=space), -1)
 
 
 def half_step_gradient(
@@ -226,38 +252,41 @@ def half_step_gradient(
     *,
     mode: str,
     state_dtype,
+    space=None,
 ) -> torch.Tensor:
     """Refinement gradient at the pooled scale, in plain PyTorch: ``x -
     r(x)`` ('score') or ``d/dx 0.5 * ||x - r(x)||^2`` through the pooled
-    denoiser ('energy'). The engine's score steps take the kernel instead."""
+    denoiser ('energy'). The engine's score steps take the kernel instead.
+    ``space``: the layout of an H-sharded ``x``."""
     check_mode(mode)
     if mode == "score":
-        return x - _half_denoise(params, core_fn, x, state_dtype)
-    return energy_gradient(lambda xx: _half_denoise(params, core_fn, xx, state_dtype), x)
+        return x - _half_denoise(params, core_fn, x, state_dtype, space)
+    return energy_gradient(lambda xx: _half_denoise(params, core_fn, xx, state_dtype, space), x)
 
 
-def full_rect_gradient(params: dict, s_k: torch.Tensor, y: torch.Tensor, *, mode: str) -> torch.Tensor:
+def full_rect_gradient(params: dict, s_k: torch.Tensor, y: torch.Tensor, *, mode: str, space=None) -> torch.Tensor:
     """Gradient of the one full-resolution rectification step; ``s_k`` is a
-    constant of it (energy mode carries the tail's Jacobian only)."""
+    constant of it (energy mode carries the tail's Jacobian only).
+    ``space``: the layout of an H-sharded ``y``."""
     check_mode(mode)
 
     def denoise(yy):
-        return torch.softmax(full_logits(params, s_k, yy), -1)
+        return torch.softmax(full_logits(params, s_k, yy, space=space), -1)
 
     if mode == "score":
         return y - denoise(y)
     return energy_gradient(denoise, y)
 
 
-def _rectify(params, s_k, y0, eps, state_dtype, with_labels, mode="score"):
+def _rectify(params, s_k, y0, eps, state_dtype, with_labels, mode="score", space=None):
     """The one full-resolution step: in score mode the kernel over
     ``full_logits``' terms; in energy mode the plain gradient step."""
     y0s = y0.to(state_dtype)
     s_k = s_k.to(state_dtype)
     if mode == "score":
-        u, v = _full_tail_terms(params, s_k, y0s)
+        u, v = _full_tail_terms(params, s_k, y0s, space)
         return refine_tail(u, y0s, eps, v=v, with_labels=with_labels)
-    y = y0s - eps * full_rect_gradient(params, s_k, y0s, mode=mode)
+    y = y0s - eps * full_rect_gradient(params, s_k, y0s, mode=mode, space=space)
     return (y, torch.argmax(y, dim=-1).to(torch.int32)) if with_labels else y
 
 
@@ -271,20 +300,23 @@ def halfres_refinement_scan(
     state_dtype=None,
     mode: str = "score",
     with_labels: bool = False,
+    space=None,
 ):
     """K steps on the pooled class map + one full-res rectification
     (unfolded tail, either tail). Returns ``y_K`` at ``state_dtype``, or
     ``(y_K, labels)`` with ``with_labels``. Score steps launch the kernel;
-    energy steps are ``x - eps * grad`` in plain PyTorch."""
+    energy steps are ``x - eps * grad`` in plain PyTorch. ``space``: the
+    layout of an H-sharded ``y0``."""
     check_mode(mode)
-    _, state_dtype, x = _pooled_carry(params, y0, state_dtype)
+    sp, state_dtype, x = _pooled_carry(params, y0, state_dtype, space)
+    xs = space and space.scaled(sp)
     for _ in range(num_steps):
         if mode == "score":
-            u, v = _half_step_terms(params, x, core_fn(x).to(state_dtype))
+            u, v = _half_step_terms(params, x, core_fn(x).to(state_dtype), xs)
             x = refine_tail(u, x, eps, v=v)
         else:
-            x = x - eps * half_step_gradient(params, core_fn, x, mode=mode, state_dtype=state_dtype)
-    return _rectify(params, core_fn(x), y0, eps, state_dtype, with_labels, mode)
+            x = x - eps * half_step_gradient(params, core_fn, x, mode=mode, state_dtype=state_dtype, space=xs)
+    return _rectify(params, core_fn(x), y0, eps, state_dtype, with_labels, mode, space)
 
 
 def halfres_refinement_scan_folded(
@@ -297,23 +329,26 @@ def halfres_refinement_scan_folded(
     state_dtype=None,
     encoder: str = "pool",
     with_labels: bool = False,
+    space=None,
 ):
     """Score-mode engine with the folded per-step tail (``fold_half_tail``).
     ``predense_fn(x) -> (pre, skip1)`` is ``dae_core(..., predense=True)``.
-    Returns ``y_K`` or ``(y_K, labels)``."""
-    _, state_dtype, x = _pooled_carry(params, y0, state_dtype)
+    Returns ``y_K`` or ``(y_K, labels)``. ``space``: the layout of an
+    H-sharded ``y0``."""
+    sp, state_dtype, x = _pooled_carry(params, y0, state_dtype, space)
+    xs = space and space.scaled(sp)
     fk = fold_half_tail(params, encoder=encoder)
     for _ in range(num_steps):
         pre, sk1 = predense_fn(x)
-        u, v, b = _folded_step_terms(fk, pre, sk1, x, encoder=encoder)
+        u, v, b = _folded_step_terms(fk, pre, sk1, x, encoder=encoder, space=xs)
         # bf16 u beside an f32 state is widened in the kernel, not cast here
         u = u if u.dtype == torch.bfloat16 else u.to(state_dtype)
         x = refine_tail(u, x, eps, v=v.to(state_dtype), b=b)
     pre, sk1 = predense_fn(x)
     s_k = folded_core_out(
-        fk, pre, sk1, encoder=encoder, out_hw=(int(x.shape[1]), int(x.shape[2]))
+        fk, pre, sk1, encoder=encoder, out_hw=(_height(x, xs), int(x.shape[2])), space=xs
     )
-    return _rectify(params, s_k, y0, eps, state_dtype, with_labels)
+    return _rectify(params, s_k, y0, eps, state_dtype, with_labels, space=space)
 
 
 def _resolve_fold(dae_params: dict, mode: str, fold_tail: bool | None) -> bool:
@@ -341,15 +376,19 @@ def halfres_refine(
     mode: str = "score",
     fold_tail: bool | None = None,
     with_labels: bool = False,
+    space=None,
 ):
     """The pooled-engine refinement from a precomputed FCN forward (shared
     by ``flagship_forward_fn`` and ``Predictor``). ``in_hw`` is the full
     resolution; stem_pool comes from the param tree; ``fold_tail=None``
-    folds whenever legal (score mode, 'full' tail)."""
+    folds whenever legal (score mode, 'full' tail). ``space``: the layout
+    of an H-sharded ``y0`` (``in_hw`` global, the taps laid out as
+    ``space.scaled(k)``); the result is this rank's band."""
     fold_tail = _resolve_fold(dae_params, mode, fold_tail)
     sp = dae_stem_pool_of(dae_params)
+    xs = space and space.scaled(sp)
     bh = precompute_bottleneck_h(
-        dae_params, h, depth=depth, stem_pool=sp, in_hw=(in_hw[0] >> sp, in_hw[1] >> sp)
+        dae_params, h, depth=depth, stem_pool=sp, in_hw=(in_hw[0] >> sp, in_hw[1] >> sp), space=xs
     )
     state_dtype = state_dtype or compute_dtype
     if fold_tail:
@@ -357,23 +396,23 @@ def halfres_refine(
         def predense_fn(x_half):
             return dae_core(
                 dae_params, x_half.to(compute_dtype), bh[2], depth=depth, stem_pool=sp,
-                bottleneck_h=bh, encoder=encoder, predense=True,
+                bottleneck_h=bh, encoder=encoder, predense=True, space=xs,
             )
 
         return halfres_refinement_scan_folded(
             dae_params, predense_fn, y0, eps=eps, num_steps=num_steps,
-            state_dtype=state_dtype, encoder=encoder, with_labels=with_labels,
+            state_dtype=state_dtype, encoder=encoder, with_labels=with_labels, space=space,
         )
 
     def core_fn(x_half):
         return dae_core(
             dae_params, x_half.to(compute_dtype), bh[2], depth=depth, stem_pool=sp,
-            bottleneck_h=bh, encoder=encoder,
+            bottleneck_h=bh, encoder=encoder, space=xs,
         )
 
     return halfres_refinement_scan(
         dae_params, core_fn, y0, eps=eps, num_steps=num_steps,
-        state_dtype=state_dtype, mode=mode, with_labels=with_labels,
+        state_dtype=state_dtype, mode=mode, with_labels=with_labels, space=space,
     )
 
 
@@ -390,27 +429,37 @@ def flagship_forward_fn(
     mode: str = "score",
     fold_tail: bool | None = None,
     with_labels: bool = False,
+    space_group=None,
 ) -> Callable:
     """The flagship pipeline as one function: ``forward(fcn_params,
     dae_params, x) -> (y0, y_k)`` (``(y0, y_k, labels)`` with
     ``with_labels``): FCN-8 forward with the conditioning taps, K pooled-map
     steps at the DAE's stem scale, one full-res rectification.
     ``fold_tail=None`` folds whenever legal (the JAX default, True, would
-    run energy mode as folded score steps)."""
+    run energy mode as folded score steps). ``space_group``: H is sharded
+    over this group ('space'); ``x`` is this rank's equal band of rows
+    (``parallel.sharding.shard_batch(..., spatial_axis='space')``), and so
+    are the outputs."""
     check_mode(mode)
     if fcn_apply is None:
         from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply as fcn_apply
 
     def forward(fcn_params, dae_params, x):
+        space, on_rows = None, {}
+        if space_group is not None:
+            from iterative_inference_segm_tpu_torch.parallel.spatial import rows_of
+
+            space = rows_of(space_group, x)
+            on_rows = {"space": space}
         y0, h = fcn_apply(
             fcn_params, x, return_features=h_taps, compute_dtype=compute_dtype,
-            probs_dtype=state_dtype or compute_dtype,
+            probs_dtype=state_dtype or compute_dtype, **on_rows,
         )
         out = halfres_refine(
-            dae_params, y0, h, (int(x.shape[1]), int(x.shape[2])),
+            dae_params, y0, h, (_height(x, space), int(x.shape[2])),
             eps=eps, num_steps=num_steps, depth=depth, compute_dtype=compute_dtype,
             state_dtype=state_dtype, encoder=encoder, mode=mode, fold_tail=fold_tail,
-            with_labels=with_labels,
+            with_labels=with_labels, space=space,
         )
         return (y0, *out) if with_labels else (y0, out)
 
@@ -442,13 +491,15 @@ def make_half_refiner(
     encoder: str = "pool",
     mode: str = "score",
     fold_tail: bool | None = None,
+    space_group=None,
 ) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
     """Image batch -> ``(y0, yK)`` via the pooled engine, over fixed params
-    (the JAX version's jit has no counterpart: PyTorch runs eagerly)."""
+    (the JAX version's jit has no counterpart: PyTorch runs eagerly).
+    ``space_group`` as in ``flagship_forward_fn``."""
     forward = flagship_forward_fn(
         fcn_apply=fcn_apply, eps=eps, num_steps=num_steps, h_taps=h_taps, depth=depth,
         compute_dtype=compute_dtype, state_dtype=state_dtype, encoder=encoder, mode=mode,
-        fold_tail=fold_tail,
+        fold_tail=fold_tail, space_group=space_group,
     )
     _resolve_fold(dae_params, mode, fold_tail)
 

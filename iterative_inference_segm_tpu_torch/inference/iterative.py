@@ -120,20 +120,29 @@ def make_refiner(
     renorm: str = "none",
     compute_dtype=torch.float32,
     dae_kwargs: Mapping | None = None,
+    space_group=None,
 ) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
     """Image batch -> ``(y0, yK)``: FCN-8 forward (taps computed once, f32
     softmax), then K steps of the general engine. ``score_logits`` is the
-    score network's logits apply (``models.registry.score_logits_fn``)."""
+    score network's logits apply (``models.registry.score_logits_fn``).
+    ``space_group``: H is sharded over this group ('space'): ``x`` is this
+    rank's equal band of rows, and so are ``y0`` and ``yK``; the FCN and the
+    score network take the layout as ``space``."""
     check_mode(mode)
     _check_renorm(renorm)
     dae_kwargs = dict(dae_kwargs or {})
     dae_kwargs.setdefault("compute_dtype", compute_dtype)
 
     def refine(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        on_rows = {}
+        if space_group is not None:
+            from iterative_inference_segm_tpu_torch.parallel.spatial import rows_of
+
+            on_rows = {"space": rows_of(space_group, x)}
         with no_autograd(mode):
-            y0, h = fcn_apply(fcn_params, x, return_features=h_taps, compute_dtype=compute_dtype)
+            y0, h = fcn_apply(fcn_params, x, return_features=h_taps, compute_dtype=compute_dtype, **on_rows)
             y_k = refinement_scan(
-                lambda y: score_logits(dae_params, y, h, **dae_kwargs), y0,
+                lambda y: score_logits(dae_params, y, h, **dae_kwargs, **on_rows), y0,
                 eps=eps, num_steps=num_steps, mode=mode, renorm=renorm,
             )
         return y0, y_k

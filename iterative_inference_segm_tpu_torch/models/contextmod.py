@@ -48,8 +48,10 @@ def contextmod_logits(
     h: Mapping[str, torch.Tensor] | None = None,
     *,
     compute_dtype=torch.float32,
+    space=None,
 ) -> torch.Tensor:
-    """(B, H, W, C) probs (+ taps at input size) -> f32 logits (B, H, W, C)."""
+    """(B, H, W, C) probs (+ taps at input size) -> f32 logits (B, H, W, C).
+    ``space``: the layout of an H-sharded ``y`` (and of its taps)."""
     x = y.to(compute_dtype)
     for v in (h or {}).values():
         if tuple(v.shape[1:3]) != tuple(x.shape[1:3]):
@@ -60,9 +62,9 @@ def contextmod_logits(
         x = torch.cat([x, v.to(x.dtype)], dim=-1)
     for i, d in enumerate(_DILATIONS):
         p = params[f"ctx{i + 1}"]
-        x = torch.relu(conv2d(x, p["w"], p["b"], padding="SAME", dilation=d))
+        x = torch.relu(conv2d(x, p["w"], p["b"], padding="SAME", dilation=d, space=space))
     p = params["out"]
-    return conv2d(x.float(), p["w"].float(), p["b"].float(), padding="SAME")
+    return conv2d(x.float(), p["w"].float(), p["b"].float(), padding="SAME", space=space)
 
 
 def contextmod_apply(
@@ -71,6 +73,8 @@ def contextmod_apply(
     h: Mapping[str, torch.Tensor] | None = None,
     *,
     compute_dtype=torch.float32,
+    space=None,
 ) -> torch.Tensor:
-    """Context-module forward: (B, H, W, C) probs -> f32 denoised probs."""
-    return torch.softmax(contextmod_logits(params, y, h, compute_dtype=compute_dtype), dim=-1)
+    """Context-module forward: (B, H, W, C) probs -> f32 denoised probs.
+    ``space`` as in ``contextmod_logits``."""
+    return torch.softmax(contextmod_logits(params, y, h, compute_dtype=compute_dtype, space=space), dim=-1)

@@ -32,6 +32,7 @@ from typing import Mapping
 import torch
 
 from iterative_inference_segm_tpu_torch.models.dae import _H_SCALE, DAE_H_CHANNELS, DEFAULT_WIDTHS
+from iterative_inference_segm_tpu_torch.models.dae import _crop_tap
 from iterative_inference_segm_tpu_torch.ops.conv import conv2d, crop_to, init_conv, max_pool, max_unpool
 
 
@@ -119,10 +120,14 @@ def mirror_dae_logits(
     *,
     depth: int | None = None,
     compute_dtype=torch.float32,
+    space=None,
 ) -> torch.Tensor:
     """Mirror DAE forward up to the softmax: probability map (B, H, W, C) (+
     conditioning taps at scales 0..depth) -> logits at the input resolution
-    and ``compute_dtype``. Tied or untied is read off the params."""
+    and ``compute_dtype``. Tied or untied is read off the params. ``space``:
+    the layout of an H-sharded ``y`` (``parallel.spatial.Rows``; a tap at
+    /2^k laid out as ``space.scaled(k)``); the logits are then this rank's
+    band of rows."""
     if depth is None:
         depth = mirror_depth_of(params)
     tied = mirror_tied_of(params)
@@ -130,11 +135,17 @@ def mirror_dae_logits(
     for name, v in (h or {}).items():
         by_scale.setdefault(_H_SCALE[name], []).append(v)
 
+    def at(i: int):
+        return space and space.scaled(i)
+
+    def height(t, i):
+        return int(t.shape[1]) if space is None else at(i).height
+
     def concat_h(x: torch.Tensor, scale: int) -> torch.Tensor:
         for v in by_scale.get(scale, []):
             v = v.to(x.dtype)
-            v = crop_to(v, min(v.shape[1], x.shape[1]), min(v.shape[2], x.shape[2]))
-            x = crop_to(x, v.shape[1], v.shape[2])
+            v = _crop_tap(v, min(height(v, scale), height(x, scale)), min(v.shape[2], x.shape[2]), at(scale))
+            x = _crop_tap(x, height(v, scale), v.shape[2], at(scale))
             x = torch.cat([x, v], dim=-1)
         return x
 
@@ -145,37 +156,37 @@ def mirror_dae_logits(
     pres = []  # pre-pool activations: the pooling switches and the unpool shapes
     for i in range(depth):
         p = params[f"enc{i + 1}"]
-        pre = torch.relu(conv2d(x, p["w"], p["b"], padding="SAME"))
+        pre = torch.relu(conv2d(x, p["w"], p["b"], padding="SAME", space=at(i)))
         pres.append(pre)
         base_ch.append(int(pre.shape[-1]))
-        x = max_pool(pre, window=2, stride=2, ceil_mode=True)
+        x = max_pool(pre, window=2, stride=2, ceil_mode=True, space=at(i))
         x = concat_h(x, i + 1)
 
     d = x
     if "mid" in params:
         p = params["mid"]
-        d = torch.relu(conv2d(d, p["w"], p["b"], padding="SAME"))
+        d = torch.relu(conv2d(d, p["w"], p["b"], padding="SAME", space=at(depth)))
     for i in reversed(range(depth)):
         pre = pres[i]
-        want = (-(-int(pre.shape[1]) // 2), -(-int(pre.shape[2]) // 2))
-        if (int(d.shape[1]), int(d.shape[2])) != want:
+        want = (-(-height(pre, i) // 2), -(-int(pre.shape[2]) // 2))
+        if (height(d, i + 1), int(d.shape[2])) != want:
             raise ValueError(
                 f"mirror decoder stage {i + 1}: carry {tuple(d.shape[1:3])} does not match the "
                 f"encoder's pooled shape {want}: a conditioning tap cropped the encoder mid-chain; "
                 "use taps whose shapes align with the DAE's ceil-mode chain (FCN-8 taps on the "
                 "same input do)"
             )
-        d = max_unpool(d, pre, window=2, stride=2)
+        d = max_unpool(d, pre, window=2, stride=2, space=at(i))
         p = params[f"dec{i + 1}"]
         w = adjoint_kernel(params[f"enc{i + 1}"]["w"]) if tied else p["w"]
-        d = conv2d(d, w, p["b"], padding="SAME")
+        d = conv2d(d, w, p["b"], padding="SAME", space=at(i))
         d = d[..., : base_ch[i]]
         if i > 0:
             d = torch.relu(d)
 
     p = params["out"]
-    logits = conv2d(d, p["w"], p["b"], padding="SAME")
-    return crop_to(logits, int(y.shape[1]), int(y.shape[2]))
+    logits = conv2d(d, p["w"], p["b"], padding="SAME", space=space)
+    return crop_to(logits, height(y, 0), int(y.shape[2]), space=space)
 
 
 def mirror_dae_apply(
@@ -186,10 +197,12 @@ def mirror_dae_apply(
     depth: int | None = None,
     compute_dtype=torch.float32,
     out_dtype=torch.float32,
+    space=None,
 ) -> torch.Tensor:
     """Mirror DAE forward: the softmax of ``mirror_dae_logits`` at
-    ``out_dtype`` (taken in f32, or in bf16 when ``out_dtype`` is bf16)."""
-    logits = mirror_dae_logits(params, y, h, depth=depth, compute_dtype=compute_dtype)
+    ``out_dtype`` (taken in f32, or in bf16 when ``out_dtype`` is bf16).
+    ``space`` as in ``mirror_dae_logits``."""
+    logits = mirror_dae_logits(params, y, h, depth=depth, compute_dtype=compute_dtype, space=space)
     if out_dtype == torch.bfloat16:
         return torch.softmax(logits.to(torch.bfloat16), dim=-1)
     return torch.softmax(logits.float(), dim=-1).to(out_dtype)

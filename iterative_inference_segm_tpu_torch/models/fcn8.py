@@ -87,20 +87,25 @@ def fcn8_apply(
     compute_dtype=torch.float32,
     probs_dtype=torch.float32,
     model_group=None,
+    space=None,
 ) -> tuple[torch.Tensor, dict]:
     """FCN-8 forward. ``x``: (B, H, W, in_channels) NHWC. Returns
     ``(probs, features)``: probs (B, H, W, C) at ``probs_dtype``, features
     the requested taps. Dropout after fc6/fc7 runs only when ``dropout`` is
     given (training): a generator that draws both keep-masks, or the two
     masks themselves (``dropout_masks``). ``model_group``: fc6/fc7 tensor-
-    parallel over this group (``fcn8_head``)."""
+    parallel over this group (``fcn8_head``). ``space``: the layout of an
+    H-sharded ``x`` (``parallel.spatial.Rows``); probs and every tap are
+    then this rank's band of rows, a tap at /2^k laid out as
+    ``space.scaled(k)``."""
     pools, feats = fcn8_backbone(
-        params, x, return_features=return_features, compute_dtype=compute_dtype
+        params, x, return_features=return_features, compute_dtype=compute_dtype, space=space
     )
+    in_h = int(x.shape[1]) if space is None else space.height
     probs, head_feats = fcn8_head(
-        params, pools, (int(x.shape[1]), int(x.shape[2])),
+        params, pools, (in_h, int(x.shape[2])),
         return_features=return_features, dropout=dropout,
-        dropout_rate=dropout_rate, probs_dtype=probs_dtype, model_group=model_group,
+        dropout_rate=dropout_rate, probs_dtype=probs_dtype, model_group=model_group, space=space,
     )
     feats.update(head_feats)
     return probs, feats
@@ -113,10 +118,12 @@ def fcn8_backbone(
     return_features: Sequence[str] = (),
     compute_dtype=torch.float32,
     through: int = 5,
+    space=None,
 ) -> tuple[dict, dict]:
     """The VGG16 stack through pool5, or through pool ``through`` (0: the
     input alone). Returns ``(pools, feats)``: those of pool3/4/5 it reached,
-    for the head, and the requested backbone taps."""
+    for the head, and the requested backbone taps. ``space`` as in
+    ``fcn8_apply``."""
     feats: dict = {}
     want = set(return_features)
     h = x.to(compute_dtype)
@@ -128,15 +135,15 @@ def fcn8_backbone(
         if pool_idx == through:
             break
         if item == "P":
+            h = max_pool(h, window=2, stride=2, ceil_mode=True, space=space and space.scaled(pool_idx))
             pool_idx += 1
-            h = max_pool(h, window=2, stride=2, ceil_mode=True)
             name = f"pool{pool_idx}"
             pools[name] = h
             if name in want:
                 feats[name] = h
             continue
         p = params[item[0]]
-        h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
+        h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME", space=space and space.scaled(pool_idx)))
     return {k: pools[k] for k in ("pool3", "pool4", "pool5") if k in pools}, feats
 
 
@@ -187,9 +194,16 @@ def fcn8_head(
     dropout_rate: float = 0.5,
     probs_dtype=torch.float32,
     model_group=None,
+    space=None,
 ) -> tuple[torch.Tensor, dict]:
     """fc6..softmax + skip-fusion decoder from the backbone's pool maps; the
     compute dtype follows the pool maps'. ``dropout`` as in ``fcn8_apply``.
+
+    With ``space`` (the input's layout, ``in_hw`` global), the maps are
+    H-sharded. A /32 map of fewer rows than shards is gathered once
+    (``parallel.spatial.gather_rows``), fc6..score_fr run on it whole on
+    every rank, and ``upscore2``'s output is re-sharded: the one all-gather
+    of the forward; every other op exchanges rows with its neighbours.
 
     With ``model_group``, fc6/fc7 run tensor-parallel over it
     (``parallel.tp``): ``params`` hold this rank's fc6 output-channel slice
@@ -199,24 +213,34 @@ def fcn8_head(
     feats: dict = {}
     want = set(return_features)
     pool3, pool4, h = pools["pool3"], pools["pool4"], pools["pool5"]
+    s3, s4, s5 = (None,) * 3 if space is None else (space.scaled(3), space.scaled(4), space.scaled(5))
+    whole = space is not None and s5.height < s5.n
+    if whole:
+        from iterative_inference_segm_tpu_torch.parallel.spatial import gather_rows, own_rows
+
+        h = gather_rows(h, s5)
+    hs = None if whole else s5  # the layout of the /32 maps (None: whole on every rank)
     if model_group is not None:
         from iterative_inference_segm_tpu_torch.parallel.tp import copy_to_model, model_slice, reduce_from_model
 
         h = copy_to_model(h, model_group)
 
     p = params["fc6"]
-    h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
+    h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME", space=hs))
     if isinstance(dropout, torch.Generator):
         fc = int(params["fc7"]["w"].shape[0])  # the whole fc width, also under TP
-        dropout = dropout_masks(dropout, (*h.shape[:3], fc), dropout_rate=dropout_rate)
+        rows = int(h.shape[1]) if hs is None else hs.height  # and over all rows under H sharding
+        dropout = dropout_masks(dropout, (h.shape[0], rows, h.shape[2], fc), dropout_rate=dropout_rate)
+        if hs is not None:
+            dropout = tuple(m[:, hs.span[0]: hs.span[1]] for m in dropout)
     if dropout is not None:
         mask = dropout[0] if model_group is None else model_slice(dropout[0], model_group)
         h = _dropout(h, dropout_rate, mask)
     p = params["fc7"]
     if model_group is None:
-        h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME"))
+        h = torch.relu(conv2d(h, p["w"], p["b"], padding="SAME", space=hs))
     else:
-        h = reduce_from_model(conv2d(h, p["w"], padding="SAME"), model_group)
+        h = reduce_from_model(conv2d(h, p["w"], padding="SAME", space=hs), model_group)
         h = torch.relu(h + p["b"].to(h.dtype))
     if dropout is not None:
         h = _dropout(h, dropout_rate, dropout[1])
@@ -224,19 +248,23 @@ def fcn8_head(
         feats["fc7"] = h
 
     p = params["score_fr"]
-    score = conv2d(h, p["w"], p["b"], padding="SAME")
-    up2 = conv_transpose2d(score, params["upscore2"]["w"], stride=2)
+    score = conv2d(h, p["w"], p["b"], padding="SAME", space=hs)
+    up2 = conv_transpose2d(score, params["upscore2"]["w"], stride=2, space=hs)
+    if whole:
+        up2 = own_rows(up2, s5.at(2 * s5.height))
     p = params["score_pool4"]
-    sp4 = conv2d(pool4, p["w"], p["b"], padding="SAME")
-    fuse4 = crop_to(up2, sp4.shape[1], sp4.shape[2]) + sp4
+    sp4 = conv2d(pool4, p["w"], p["b"], padding="SAME", space=s4)
+    h4 = int(sp4.shape[1]) if s4 is None else s4.height
+    fuse4 = crop_to(up2, h4, sp4.shape[2], space=s5 and s5.at(2 * s5.height)) + sp4
 
-    up4 = conv_transpose2d(fuse4, params["upscore_pool4"]["w"], stride=2)
+    up4 = conv_transpose2d(fuse4, params["upscore_pool4"]["w"], stride=2, space=s4)
     p = params["score_pool3"]
-    sp3 = conv2d(pool3, p["w"], p["b"], padding="SAME")
-    fuse3 = crop_to(up4, sp3.shape[1], sp3.shape[2]) + sp3
+    sp3 = conv2d(pool3, p["w"], p["b"], padding="SAME", space=s3)
+    h3 = int(sp3.shape[1]) if s3 is None else s3.height
+    fuse3 = crop_to(up4, h3, sp3.shape[2], space=s4 and s4.at(2 * h4)) + sp3
 
-    up8 = conv_transpose2d(fuse3, params["upscore8"]["w"], stride=8)
-    cropped = crop_to(up8, in_hw[0], in_hw[1])
+    up8 = conv_transpose2d(fuse3, params["upscore8"]["w"], stride=8, space=s3)
+    cropped = crop_to(up8, in_hw[0], in_hw[1], space=s3 and s3.at(8 * h3))
     logits = cropped.float()
 
     if "score" in want:
@@ -260,12 +288,13 @@ def fcn8_logits(
     dropout_rate: float = 0.5,
     compute_dtype=torch.float32,
     model_group=None,
+    space=None,
 ) -> torch.Tensor:
     """Pre-softmax scores (B, H, W, C) in f32 at input resolution (the
-    training loss wants logits); ``dropout`` and ``model_group`` as in
-    ``fcn8_apply``."""
+    training loss wants logits); ``dropout``, ``model_group`` and ``space``
+    as in ``fcn8_apply``."""
     _, feats = fcn8_apply(
         params, x, return_features=("score",), dropout=dropout, dropout_rate=dropout_rate,
-        compute_dtype=compute_dtype, model_group=model_group,
+        compute_dtype=compute_dtype, model_group=model_group, space=space,
     )
     return feats["score"]

@@ -21,9 +21,11 @@ def validate_arch(arch: str) -> None:
 
 
 def _contextmod_only_dtype(fn):
-    """The context module takes ``compute_dtype`` alone: forward it and drop
-    the rest (dropping it too would run the network in f32 under bf16)."""
-    return lambda p, y, h, **kw: fn(p, y, h, compute_dtype=kw.get("compute_dtype", torch.float32))
+    """The context module takes ``compute_dtype`` (and an H-sharded map's
+    ``space``) alone: forward them and drop the rest (dropping the dtype
+    too would run the network in f32 under bf16)."""
+    return lambda p, y, h, **kw: fn(p, y, h, compute_dtype=kw.get("compute_dtype", torch.float32),
+                                    space=kw.get("space"))
 
 
 def score_apply_fn(arch: str):

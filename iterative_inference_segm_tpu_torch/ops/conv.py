@@ -61,6 +61,53 @@ def _same_pads(size: int, k: int, s: int, d: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def _axis_pads(padding, axis: int, size: int, k: int, s: int, d: int) -> tuple[int, int]:
+    """The (low, high) padding of spatial axis ``axis`` (0: H, 1: W)."""
+    if padding == "SAME":
+        return _same_pads(size, k, s, d)
+    if padding == "VALID":
+        return 0, 0
+    return int(padding[axis][0]), int(padding[axis][1])
+
+
+def _conv_rows(x, w, b, stride, padding, dilation, groups, space):
+    """``F.conv2d`` of NHWC ``x`` with XLA's padding; under ``space`` (the
+    layout of an H-sharded ``x``, ``parallel.spatial``) on this rank's band
+    of output rows, its input rows fetched, the H padding read as the zero
+    rows past the map's edges (it follows the global height, not the
+    band's)."""
+    sh, sw = _pair(stride)
+    dh, dw = _pair(dilation)
+    kh, kw = int(w.shape[2]), int(w.shape[3])
+    height = int(x.shape[1]) if space is None else space.height
+    ph_lo, ph_hi = _axis_pads(padding, 0, height, kh, sh, dh)
+    pw_lo, pw_hi = _axis_pads(padding, 1, int(x.shape[2]), kw, sw, dw)
+    _exact_f32(x.dtype)
+    bias = None if b is None else b.to(x.dtype)
+    wt = _weight(w, x.dtype)
+
+    def conv(xh, h_pads):
+        xc = _nchw(xh)
+        if h_pads[0] == h_pads[1] and pw_lo == pw_hi:
+            pad = (h_pads[0], pw_lo)
+        else:
+            xc = F.pad(xc, (pw_lo, pw_hi, *h_pads))
+            pad = (0, 0)
+        return _nhwc(F.conv2d(xc, wt, bias, (sh, sw), pad, (dh, dw), groups))
+
+    if space is None:
+        return conv(x, (ph_lo, ph_hi))
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rowwise
+
+    reach = (kh - 1) * dh + 1
+    out_h = (height + ph_lo + ph_hi - reach) // sh + 1
+    return rowwise(
+        x, space, out_h,
+        lambda lo, hi: (lo * sh - ph_lo, (hi - 1) * sh - ph_lo + reach),
+        lambda block, a, lo, hi: conv(block, (0, 0)),
+    )
+
+
 def conv2d(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -69,28 +116,46 @@ def conv2d(
     stride: int | tuple[int, int] = 1,
     padding: str | Sequence[tuple[int, int]] = "SAME",
     dilation: int | tuple[int, int] = 1,
+    space=None,
 ) -> torch.Tensor:
-    """2-D cross-correlation, NHWC x OIHW -> NHWC at ``x.dtype``."""
-    sh, sw = _pair(stride)
-    dh, dw = _pair(dilation)
+    """2-D cross-correlation, NHWC x OIHW -> NHWC at ``x.dtype``. ``space``:
+    the layout of an H-sharded ``x`` (``parallel.spatial.Rows``); the
+    result is this rank's band of the output."""
+    return _conv_rows(x, w, b, stride, padding, dilation, 1, space)
+
+
+def _conv_transpose_rows(x, w, b, stride, groups, space, name):
+    """The transposed conv of ``conv_transpose2d`` (output ``stride x``
+    the input), under ``space`` on this rank's band of output rows."""
     kh, kw = int(w.shape[2]), int(w.shape[3])
-    if padding == "SAME":
-        pads = (_same_pads(x.shape[1], kh, sh, dh), _same_pads(x.shape[2], kw, sw, dw))
-    elif padding == "VALID":
-        pads = ((0, 0), (0, 0))
-    else:
-        pads = tuple((int(lo), int(hi)) for lo, hi in padding)
-    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
-    xc = _nchw(x)
-    if ph_lo == ph_hi and pw_lo == pw_hi:
-        pad = (ph_lo, pw_lo)
-    else:
-        xc = F.pad(xc, (pw_lo, pw_hi, ph_lo, ph_hi))
-        pad = (0, 0)
+    pads = []
+    for k in (kh, kw):
+        lo = -(-(k + stride - 2) // 2)
+        if k - 1 - lo < 0:
+            raise ValueError(f"{name}: kernel {k} smaller than stride {stride}")
+        pads.append(k - 1 - lo)
     _exact_f32(x.dtype)
     bias = None if b is None else b.to(x.dtype)
-    out = F.conv2d(xc, _weight(w, x.dtype), bias, (sh, sw), pad, (dh, dw))
-    return _nhwc(out)
+    wt = _weight(w, x.dtype)
+    wd = int(x.shape[2]) * stride
+    if space is None:
+        out = F.conv_transpose2d(_nchw(x), wt, bias, stride, tuple(pads), groups=groups)
+        return _nhwc(out[:, :, : int(x.shape[1]) * stride, :wd])
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rowwise
+
+    p = pads[0]
+
+    def compute(block, a, lo, hi):
+        # unpadded in H: local row r is global row stride * a + r - p
+        out = F.conv_transpose2d(_nchw(block), wt, bias, stride, (0, pads[1]), groups=groups)
+        top = lo - stride * a + p
+        return _nhwc(out[:, :, top: top + hi - lo, :wd])
+
+    return rowwise(
+        x, space, space.height * stride,
+        lambda lo, hi: (-(-(lo + p - kh + 1) // stride), (hi - 1 + p) // stride + 1),
+        compute,
+    )
 
 
 def conv_transpose2d(
@@ -99,6 +164,7 @@ def conv_transpose2d(
     b: torch.Tensor | None = None,
     *,
     stride: int = 2,
+    space=None,
 ) -> torch.Tensor:
     """Transposed convolution with output exactly ``stride * input``.
 
@@ -108,19 +174,9 @@ def conv_transpose2d(
     on both sides, so ``p = k - 1 - pad_lo`` (1 for k4/s2, 4 for k16/s8);
     when the JAX split is uneven the one extra row/column is at the end and
     is cropped. ``w`` is (I, O, kh, kw), already flipped (see module doc).
+    ``space`` as in ``conv2d``.
     """
-    kh, kw = int(w.shape[2]), int(w.shape[3])
-    pads = []
-    for k in (kh, kw):
-        lo = -(-(k + stride - 2) // 2)
-        if k - 1 - lo < 0:
-            raise ValueError(f"conv_transpose2d: kernel {k} smaller than stride {stride}")
-        pads.append(k - 1 - lo)
-    _exact_f32(x.dtype)
-    bias = None if b is None else b.to(x.dtype)
-    out = F.conv_transpose2d(_nchw(x), _weight(w, x.dtype), bias, stride, tuple(pads))
-    h, wd = int(x.shape[1]) * stride, int(x.shape[2]) * stride
-    return _nhwc(out[:, :, :h, :wd])
+    return _conv_transpose_rows(x, w, b, stride, 1, space, "conv_transpose2d")
 
 
 def _depthwise_weight(w: torch.Tensor, c: int) -> None:
@@ -134,23 +190,14 @@ def conv2d_depthwise(
     b: torch.Tensor | None = None,
     *,
     padding: str | Sequence[tuple[int, int]] = "SAME",
+    space=None,
 ) -> torch.Tensor:
     """Depthwise 2-D cross-correlation, NHWC x (C, 1, kh, kw) -> NHWC at
-    ``x.dtype`` (``groups=C``; the JAX kernel is (kh, kw, C))."""
+    ``x.dtype`` (``groups=C``; the JAX kernel is (kh, kw, C)). ``space`` as
+    in ``conv2d``."""
     c = int(x.shape[-1])
     _depthwise_weight(w, c)
-    kh, kw = int(w.shape[2]), int(w.shape[3])
-    if padding == "SAME":
-        pads = (_same_pads(x.shape[1], kh, 1, 1), _same_pads(x.shape[2], kw, 1, 1))
-    elif padding == "VALID":
-        pads = ((0, 0), (0, 0))
-    else:
-        pads = tuple((int(lo), int(hi)) for lo, hi in padding)
-    (ph_lo, ph_hi), (pw_lo, pw_hi) = pads
-    _exact_f32(x.dtype)
-    xc = F.pad(_nchw(x), (pw_lo, pw_hi, ph_lo, ph_hi))
-    bias = None if b is None else b.to(x.dtype)
-    return _nhwc(F.conv2d(xc, _weight(w, x.dtype), bias, groups=c))
+    return _conv_rows(x, w, b, 1, padding, 1, c, space)
 
 
 def conv_transpose2d_depthwise(
@@ -159,33 +206,44 @@ def conv_transpose2d_depthwise(
     b: torch.Tensor | None = None,
     *,
     stride: int = 2,
+    space=None,
 ) -> torch.Tensor:
     """Depthwise transposed conv, output ``stride * input``: the padding
     convention of ``conv_transpose2d`` (``k + s - 2`` split with the odd
     pixel low) with one filter per channel. ``w`` is (C, 1, kh, kw), already
-    spatially flipped like every transposed-conv weight of the port."""
+    spatially flipped like every transposed-conv weight of the port.
+    ``space`` as in ``conv2d``."""
     c = int(x.shape[-1])
     _depthwise_weight(w, c)
-    kh, kw = int(w.shape[2]), int(w.shape[3])
-    pads = []
-    for k in (kh, kw):
-        lo = -(-(k + stride - 2) // 2)
-        if k - 1 - lo < 0:
-            raise ValueError(f"conv_transpose2d_depthwise: kernel {k} smaller than stride {stride}")
-        pads.append(k - 1 - lo)
-    _exact_f32(x.dtype)
-    bias = None if b is None else b.to(x.dtype)
-    out = F.conv_transpose2d(_nchw(x), _weight(w, x.dtype), bias, stride, tuple(pads), groups=c)
-    h, wd = int(x.shape[1]) * stride, int(x.shape[2]) * stride
-    return _nhwc(out[:, :, :h, :wd])
+    return _conv_transpose_rows(x, w, b, stride, c, space, "conv_transpose2d_depthwise")
+
+
+def _pooled_height(h: int, window: int, stride: int, ceil_mode: bool) -> int:
+    """``F.max_pool2d``'s output size: a ceil-mode window must start
+    inside the map."""
+    if not ceil_mode:
+        return (h - window) // stride + 1
+    out = -(-(h - window) // stride) + 1
+    return out - 1 if (out - 1) * stride >= h else out
 
 
 def max_pool(
-    x: torch.Tensor, *, window: int = 2, stride: int = 2, ceil_mode: bool = True
+    x: torch.Tensor, *, window: int = 2, stride: int = 2, ceil_mode: bool = True, space=None
 ) -> torch.Tensor:
     """Max pooling over H, W; ``ceil_mode=True`` counts partial windows
-    (360 -> 180 -> 90 -> 45 -> 23 -> 12), as the JAX package's -inf pad."""
-    return _nhwc(F.max_pool2d(_nchw(x), window, stride, ceil_mode=ceil_mode))
+    (360 -> 180 -> 90 -> 45 -> 23 -> 12), as the JAX package's -inf pad.
+    ``space`` as in ``conv2d``: a window cut by a band's edge takes its
+    partner rows from the neighbour, one cut by the map's edge reads -inf."""
+    if space is None:
+        return _nhwc(F.max_pool2d(_nchw(x), window, stride, ceil_mode=ceil_mode))
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rowwise
+
+    return rowwise(
+        x, space, _pooled_height(space.height, window, stride, ceil_mode),
+        lambda lo, hi: (lo * stride, (hi - 1) * stride + window),
+        lambda block, a, lo, hi: _nhwc(F.max_pool2d(_nchw(block), window, stride, ceil_mode=ceil_mode)),
+        fill=float("-inf"),
+    )
 
 
 def upsample_pool_indices(x: torch.Tensor, *, factor: int = 2) -> torch.Tensor:
@@ -194,7 +252,16 @@ def upsample_pool_indices(x: torch.Tensor, *, factor: int = 2) -> torch.Tensor:
     return x.repeat_interleave(factor, dim=1).repeat_interleave(factor, dim=2)
 
 
-def max_unpool(g: torch.Tensor, pre: torch.Tensor, *, window: int = 2, stride: int = 2) -> torch.Tensor:
+def _unpool(g, pre, window, stride):
+    _, idx = F.max_pool2d(_nchw(pre), window, stride, ceil_mode=True, return_indices=True)
+    # indices count within each (H, W) plane whatever the memory format
+    out = F.max_unpool2d(_nchw(g.to(pre.dtype)).contiguous(), idx.contiguous(), window, stride,
+                         output_size=tuple(pre.shape[1:3]))
+    return _nhwc(out).contiguous().to(g.dtype)
+
+
+def max_unpool(g: torch.Tensor, pre: torch.Tensor, *, window: int = 2, stride: int = 2,
+               space=None) -> torch.Tensor:
     """Switch-based max-unpooling: ``g`` (the pooled shape) scattered to the
     position of each window's maximum in ``pre``, zeros elsewhere; the
     adjoint of the ceil-mode ``max_pool`` at ``pre``, as the JAX package's
@@ -204,29 +271,69 @@ def max_unpool(g: torch.Tensor, pre: torch.Tensor, *, window: int = 2, stride: i
     row-major order, as XLA keeps the first (all-zero windows after a ReLU
     and bf16 ties are common); a ceil-mode window cut by the border looks at
     its valid pixels only. ``pre`` enters as a constant (detached), and the
-    output is linear in ``g``, at ``g``'s dtype."""
+    output is linear in ``g``, at ``g``'s dtype. ``space``: the layout of
+    an H-sharded ``pre`` (``g`` is laid out as its pooled map); the result
+    is this rank's band of ``pre``'s rows (``window == stride`` only)."""
     pre = pre.detach()
-    _, idx = F.max_pool2d(_nchw(pre), window, stride, ceil_mode=True, return_indices=True)
-    # indices count within each (H, W) plane whatever the memory format
-    out = F.max_unpool2d(_nchw(g.to(pre.dtype)).contiguous(), idx.contiguous(), window, stride,
-                         output_size=tuple(pre.shape[1:3]))
-    return _nhwc(out).contiguous().to(g.dtype)
+    if space is None:
+        return _unpool(g, pre, window, stride)
+    if window != stride:
+        raise ValueError(f"max_unpool on an H-sharded map takes window == stride; got {window}, {stride}")
+    from iterative_inference_segm_tpu_torch.parallel.spatial import fetch_rows, rowwise
+
+    g_space = space.at(_pooled_height(space.height, window, stride, True))
+    out = space.at(space.height)
+    want = [None if hi == lo else (lo // stride * stride, -(-hi // stride) * stride) for lo, hi in out.bounds]
+    # the rows of whole windows, -inf past the map's edge (never a maximum)
+    pre_block = fetch_rows(pre, space, want, float("-inf"))
+
+    def compute(block, a, lo, hi):
+        p = pre_block if pre_block.shape[1] else torch.full(
+            (block.shape[0], block.shape[1] * stride, *pre.shape[2:]), float("-inf"), dtype=pre.dtype,
+            device=pre.device)
+        return _unpool(block, p, window, stride)[:, lo - a * stride: hi - a * stride]
+
+    return rowwise(g, g_space, space.height, lambda lo, hi: (lo // stride, -(-hi // stride)), compute)
 
 
-def avg_pool(x: torch.Tensor, *, window: int = 2, stride: int = 2) -> torch.Tensor:
-    """Average pooling (VALID)."""
-    return _nhwc(F.avg_pool2d(_nchw(x), window, stride))
+def avg_pool(x: torch.Tensor, *, window: int = 2, stride: int = 2, space=None, edge: bool = False) -> torch.Tensor:
+    """Average pooling (VALID). ``space`` as in ``conv2d``; with ``edge``
+    (H-sharded only) an odd last window reads the map's last row twice,
+    as an edge pad to an even height would."""
+    if space is None:
+        return _nhwc(F.avg_pool2d(_nchw(x), window, stride))
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rowwise
+
+    height = space.height + (space.height % 2 if edge else 0)
+    return rowwise(
+        x, space, (height - window) // stride + 1,
+        lambda lo, hi: (lo * stride, (hi - 1) * stride + window),
+        lambda block, a, lo, hi: _nhwc(F.avg_pool2d(_nchw(block), window, stride)),
+        fill="edge",
+    )
 
 
-def crop_to(x: torch.Tensor, target_h: int, target_w: int) -> torch.Tensor:
+def crop_to(x: torch.Tensor, target_h: int, target_w: int, *, space=None) -> torch.Tensor:
     """Center-crop NHWC ``x`` to (target_h, target_w); offsets
-    ``(size - target) // 2`` (Caffe-style crop). Returns a view."""
+    ``(size - target) // 2`` (Caffe-style crop). Returns a view. ``space``:
+    the layout of an H-sharded ``x``; the crop is the global one, and the
+    result this rank's band of the cropped map (its rows fetched where
+    the crop moves the bands' edges)."""
     _, h, w, _ = x.shape
+    if space is not None:
+        h = space.height
     if h < target_h or w < target_w:
         raise ValueError(f"crop_to: input {(h, w)} smaller than target {(target_h, target_w)}")
     oh = (h - target_h) // 2
     ow = (w - target_w) // 2
-    return x[:, oh : oh + target_h, ow : ow + target_w, :]
+    if space is None:
+        return x[:, oh : oh + target_h, ow : ow + target_w, :]
+    x = x[:, :, ow : ow + target_w, :]
+    if target_h == h:
+        return x
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rowwise
+
+    return rowwise(x, space, target_h, lambda lo, hi: (oh + lo, oh + hi), lambda block, a, lo, hi: block)
 
 
 # ---------------------------------------------------------------------------

@@ -13,29 +13,37 @@ from __future__ import annotations
 import torch
 
 
-def _masked_mean_nll(logp: torch.Tensor, labels: torch.Tensor, n_classes: int) -> torch.Tensor:
+def _masked_mean_nll(logp: torch.Tensor, labels: torch.Tensor, n_classes: int, space=None) -> torch.Tensor:
     valid = (labels >= 0) & (labels < n_classes)
     safe = torch.where(valid, labels, torch.zeros_like(labels)).to(torch.int64)
     nll = -torch.gather(logp, -1, safe[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    count = valid.sum().clamp(min=1)
-    return nll.sum() / count
+    count = valid.sum()
+    if space is not None:
+        from iterative_inference_segm_tpu_torch.parallel.spatial import sum_over
+
+        count = sum_over(count, space)
+    return nll.sum() / count.clamp(min=1)
 
 
-def masked_crossentropy(logits: torch.Tensor, labels: torch.Tensor, *, n_classes: int) -> torch.Tensor:
+def masked_crossentropy(logits: torch.Tensor, labels: torch.Tensor, *, n_classes: int, space=None) -> torch.Tensor:
     """Mean categorical crossentropy over non-void pixels. logits (B,H,W,C)
-    pre-softmax scores; labels (B,H,W) int. Returns a scalar f32."""
+    pre-softmax scores; labels (B,H,W) int. Returns a scalar f32. ``space``:
+    the layout of H-sharded maps (``parallel.spatial.Rows``); the pixel
+    count is then summed over the 'space' group, so the rank's value is its
+    rows' part of the whole map's mean (the parts sum to it)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return _masked_mean_nll(logp, labels, n_classes)
+    return _masked_mean_nll(logp, labels, n_classes, space)
 
 
 def crossentropy_probs(
-    probs: torch.Tensor, labels: torch.Tensor, *, n_classes: int, eps: float = 1e-7
+    probs: torch.Tensor, labels: torch.Tensor, *, n_classes: int, eps: float = 1e-7, space=None
 ) -> torch.Tensor:
     """Crossentropy against already-softmaxed predictions (the DAE output),
-    probabilities clipped to [eps, 1] before the log."""
+    probabilities clipped to [eps, 1] before the log. ``space`` as in
+    ``masked_crossentropy``."""
     logp = torch.log(torch.clamp(probs.float(), eps, 1.0))
-    return _masked_mean_nll(logp, labels, n_classes)
+    return _masked_mean_nll(logp, labels, n_classes, space)
 
 
 def l2_regularization(params: dict, *, weight_keys: tuple[str, ...] = ("w",)) -> torch.Tensor:

@@ -5,8 +5,9 @@ tensor- and pipeline-parallel steps (port of
 One process a device (``launch``), each holding its part: DP averages the
 gradients with one all-reduce a step (``dp``), TP splits the fc6/fc7 pair
 over a 'model' axis (``tp``), PP streams microbatches through per-stage
-ranks for serving and, through ``torch.autograd``, for training (``pp``).
-Spatial (H) sharding is not ported yet (ROADMAP.md, Queue 1 step I).
+ranks for serving and, through ``torch.autograd``, for training (``pp``),
+and spatial sharding splits H over a 'space' axis with explicit halo
+exchanges (``spatial``; XLA inserts them for the JAX package).
 """
 
 from iterative_inference_segm_tpu_torch.parallel.mesh import local_device_count, make_mesh

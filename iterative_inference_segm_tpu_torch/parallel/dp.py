@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from iterative_inference_segm_tpu_torch.parallel import comm
 from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group, axis_size
@@ -35,15 +36,31 @@ def leaves(params: dict) -> list[torch.Tensor]:
     return [t for layer in params.values() for t in layer.values()]
 
 
-def average_gradients(tensors: list[torch.Tensor], loss: torch.Tensor, mesh, *, axis: str = "data") -> torch.Tensor:
+def reduce_group(mesh, axis: str = "data", sum_axis: str | None = None):
+    """The group a step's reduction runs over: ``axis``'s, or with
+    ``sum_axis`` (the 'space' of an H-sharded step, whose ranks hold parts
+    of one gradient) the whole mesh of the two axes."""
+    if sum_axis is None:
+        return axis_group(mesh, axis)
+    axis_size(mesh, sum_axis)
+    if set(mesh.mesh_dim_names) != {axis, sum_axis} or mesh.size() != dist.get_world_size():
+        raise ValueError(f"a reduction over '{axis}' and '{sum_axis}' needs a mesh of those two axes over "
+                         f"every rank; got {mesh.mesh_dim_names}")
+    return dist.group.WORLD
+
+
+def average_gradients(tensors: list[torch.Tensor], loss: torch.Tensor, mesh, *, axis: str = "data",
+                      sum_axis: str | None = None) -> torch.Tensor:
     """Average the ``.grad`` of ``tensors`` and ``loss`` over ``axis`` with
     one ``all_reduce`` of one flat f32 buffer; the averaged gradients are
     written back into ``.grad`` (a missing one counts as zeros). Returns the
-    averaged loss."""
+    averaged loss. With ``sum_axis`` the same one all-reduce also sums them
+    over that axis (an H-sharded step: each 'space' rank holds its rows'
+    part of the loss and of every gradient)."""
     n = axis_size(mesh, axis)
     grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in tensors]
     flat = torch.cat([loss.detach().reshape(1).float()] + [g.reshape(-1).float() for g in grads])
-    comm.all_reduce_(flat, axis_group(mesh, axis))
+    comm.all_reduce_(flat, reduce_group(mesh, axis, sum_axis))
     flat /= n
     offset = 1
     for t, g in zip(tensors, grads):

@@ -8,7 +8,10 @@ group and the mesh in each, and calls ``fn(mesh, device, *args)`` there.
 * The ranks meet at a ``FileStore`` in a temporary directory: no TCP port,
   so launches in concurrent processes cannot collide.
 * Rank r runs on ``cuda:r`` for ``device='cuda'``; any other device
-  (``'cpu'``, ``'cuda:0'``) is every rank's.
+  (``'cpu'``, ``'cuda:0'``) is every rank's. A CPU rank takes its share of
+  the cores for its intra-op threads, and no more than the launching
+  process had (``torch.get_num_threads()``), so a caller that limits its
+  threads limits its ranks'.
 * The backend is explicit: NCCL on CUDA, gloo on the CPU, unless the caller
   names one. NCCL takes one card a rank, so ranks that share a card must
   ask for gloo; nothing falls back from one backend to the other.
@@ -19,6 +22,10 @@ group and the mesh in each, and calls ``fn(mesh, device, *args)`` there.
 * A rank's standard output is kept in a file; rank 0's is written to the
   parent's ``sys.stdout`` when the ranks end, and the others' are dropped,
   so only rank 0 prints.
+* ``fn`` and its arguments are pickled once into the launch's temporary
+  directory, and every rank loads them from there, so the ranks start
+  together (through the start pipe, a rank that imports what it unpickles
+  holds up the next rank's start).
 * Rank 0's return value (or, with ``launch_ranks``, every rank's) comes
   back to the parent, pickled: return CPU tensors or numpy arrays. A rank
   that raises ends the launch: the others are terminated and the parent
@@ -94,25 +101,38 @@ def prebuild(devices: Sequence[torch.device], kernels: Sequence[str], native_run
         _build.build_host(NATIVE_SRC, "input_runtime")
 
 
-def _rank_main(rank, fn, args, spec: MeshSpec, devices, backend, tmp: str, build_dir: str):
+_CALL = "call.pkl"  # (fn, args), in the launch's temporary directory
+
+
+def _record_failure(tmp: Path, rank: int) -> None:
+    """When and how this rank failed, for the parent to find the first."""
+    with open(tmp / f"error-{rank}.pkl", "wb") as f:
+        pickle.dump((time.time(), traceback.format_exc()), f)
+
+
+def _rank_main(rank, spec: MeshSpec, devices, backend, tmp: str, build_dir: str, threads: int):
     _build.BUILD_DIR = Path(build_dir)
     device = devices[rank]
     if device.type == "cuda":
         torch.cuda.set_device(device)
     else:
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // len(devices)))
+        torch.set_num_threads(max(1, min(threads, (os.cpu_count() or 1) // len(devices))))
     tmp = Path(tmp)
     with open(tmp / f"stdout-{rank}", "w") as out:
         sys.stdout = out
+        try:
+            with open(tmp / _CALL, "rb") as f:
+                fn, args = pickle.load(f)
+        except BaseException:
+            _record_failure(tmp, rank)
+            raise
         dist.init_process_group(backend, init_method=f"file://{tmp / 'store'}", rank=rank,
                                 world_size=spec.size, timeout=COLLECTIVE_TIMEOUT)
         try:
             mesh = make_mesh(spec.axis_names, spec.axis_sizes, device_type=device.type)
             result = fn(mesh, device, *args)
         except BaseException:
-            # when it failed, for the parent to find the first failure
-            with open(tmp / f"error-{rank}.pkl", "wb") as f:
-                pickle.dump((time.time(), traceback.format_exc()), f)
+            _record_failure(tmp, rank)
             raise
         finally:
             dist.destroy_process_group()
@@ -139,8 +159,10 @@ def launch_ranks(
     backend = resolve_backend(devices, backend)
     prebuild(devices, kernels, native_runtime)
     with tempfile.TemporaryDirectory(prefix="launch-") as tmp:
+        with open(Path(tmp) / _CALL, "wb") as f:
+            pickle.dump((fn, args), f)
         ctx = mp.start_processes(
-            _rank_main, args=(fn, args, mesh, devices, backend, tmp, str(_build.BUILD_DIR)),
+            _rank_main, args=(mesh, devices, backend, tmp, str(_build.BUILD_DIR), torch.get_num_threads()),
             nprocs=mesh.size, join=False, start_method="spawn",
         )
         try:

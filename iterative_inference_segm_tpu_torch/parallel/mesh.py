@@ -59,19 +59,27 @@ def make_mesh(
     axis_sizes: tuple[int, ...] | None = None,
     *,
     device_type: str | None = None,
+    ranks: int | None = None,
 ) -> DeviceMesh:
     """A DeviceMesh over every rank of the launched group. Default: a 1-D
-    'data' mesh; ``axis_sizes`` must multiply to the world size."""
+    'data' mesh; ``axis_sizes`` must multiply to the world size. With
+    ``ranks`` (the JAX ``devices=`` of a subset), a mesh over the first
+    ``ranks`` ranks: every rank of the group calls this, and a rank outside
+    the mesh takes no part in what runs on it."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs a launched process group (parallel.launch)")
-    n = dist.get_world_size()
+    n = dist.get_world_size() if ranks is None else int(ranks)
+    if not 1 <= n <= dist.get_world_size():
+        raise ValueError(f"a mesh over {n} ranks in a group of {dist.get_world_size()}")
     if axis_sizes is None:
         axis_sizes = (n,) + (1,) * (len(axis_names) - 1)
     if int(np.prod(axis_sizes)) != n:
         raise ValueError(f"axis sizes {tuple(axis_sizes)} do not multiply to device count {n}")
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, tuple(axis_sizes), mesh_dim_names=tuple(axis_names))
+    if ranks is None:
+        return init_device_mesh(device_type, tuple(axis_sizes), mesh_dim_names=tuple(axis_names))
+    return DeviceMesh(device_type, torch.arange(n).reshape(tuple(axis_sizes)), mesh_dim_names=tuple(axis_names))
 
 
 def mesh_from_flag(devices: str | int | None, *, batch_size: int | None = None,

@@ -47,14 +47,19 @@ class Placement:
 
 
 def batch_sharding(mesh, ndim: int, *, axis: str = "data", spatial_axis: str | None = None) -> Placement:
-    """Dim 0 (the batch) sharded over ``axis``; ``ndim`` is kept for the JAX
-    signature (the placement holds for any rank of at least 1)."""
-    if spatial_axis is not None:
-        raise NotImplementedError(
-            "spatial (H) sharding is not ported yet (ROADMAP.md, Queue 1 item 12: it needs a halo "
-            "exchange around each conv, pool and deconv)")
+    """Dim 0 (the batch) sharded over ``axis``; with ``spatial_axis``, dim 1
+    (H) too, over that axis, for a value of ``ndim`` >= 2. An H-sharded map
+    is run by the ops through ``parallel.spatial`` (their ``space``)."""
     axis_size(mesh, axis)
-    return Placement(mesh, tuple(Shard(0) if n == axis else Replicate() for n in mesh.mesh_dim_names))
+    if spatial_axis is not None:
+        axis_size(mesh, spatial_axis)
+
+    def place(name):
+        if name == axis:
+            return Shard(0)
+        return Shard(1) if name == spatial_axis and ndim >= 2 else Replicate()
+
+    return Placement(mesh, tuple(place(n) for n in mesh.mesh_dim_names))
 
 
 def replicated_sharding(mesh) -> Placement:
@@ -62,9 +67,10 @@ def replicated_sharding(mesh) -> Placement:
 
 
 def shard_batch(mesh, tree, *, axis: str = "data", spatial_axis: str | None = None):
-    """This rank's slice of dim 0 of every leaf (numpy arrays or tensors)."""
-    place = batch_sharding(mesh, 1, axis=axis, spatial_axis=spatial_axis)
-    return tree_map(place.local, tree)
+    """This rank's slice of dim 0 of every leaf (numpy arrays or tensors),
+    and with ``spatial_axis`` its equal band of dim 1 (H) of every leaf of
+    2 dims or more."""
+    return tree_map(lambda x: batch_sharding(mesh, x.ndim, axis=axis, spatial_axis=spatial_axis).local(x), tree)
 
 
 def replicate(mesh, tree):
@@ -75,12 +81,15 @@ def replicate(mesh, tree):
     return tree
 
 
-def gather_batch(mesh, t: torch.Tensor, *, axis: str = "data") -> torch.Tensor:
-    """The whole batch from every rank's dim-0 shard over ``axis``."""
+def gather_batch(mesh, t: torch.Tensor, *, axis: str = "data", spatial_axis: str | None = None) -> torch.Tensor:
+    """The whole batch from every rank's dim-0 shard over ``axis`` (and,
+    with ``spatial_axis``, its band of H over that axis first)."""
+    if spatial_axis is not None:
+        t = comm.all_gather_cat(t, axis_group(mesh, spatial_axis), dim=1)
     return comm.all_gather_cat(t, axis_group(mesh, axis))
 
 
-def padded_batch_putter(mesh, *, void_label: int, axis: str = "data"):
+def padded_batch_putter(mesh, *, void_label: int, axis: str = "data", spatial_axis: str | None = None):
     """``put(images, labels)`` for the DP training loops: this rank's shard
     of a whole batch as host tensors of the batch's dtypes (the u8 wire
     stays bytes), a short batch padded first with zero images and all-void
@@ -90,10 +99,12 @@ def padded_batch_putter(mesh, *, void_label: int, axis: str = "data"):
     with a count-guarded denominator, so padded rows add nothing to loss,
     gradients or metrics (an all-padded shard averages in a zero loss and
     gradient, the equal-shard weighting every DP step has). The padded size
-    is pinned by the first batch, so every step has one shape.
+    is pinned by the first batch, so every step has one shape. With
+    ``spatial_axis`` each part is also the rank's band of H.
     """
     n_dev = axis_size(mesh, axis)
-    place = batch_sharding(mesh, 1, axis=axis)
+    x_place = batch_sharding(mesh, 4, axis=axis, spatial_axis=spatial_axis)
+    y_place = batch_sharding(mesh, 3, axis=axis, spatial_axis=spatial_axis)
     target = [0]
 
     def put(images, labels):
@@ -105,7 +116,7 @@ def padded_batch_putter(mesh, *, void_label: int, axis: str = "data"):
         if b < t:
             x = np.concatenate([x, np.zeros((t - b, *x.shape[1:]), x.dtype)])
             y = np.concatenate([y, np.full((t - b, *y.shape[1:]), void_label, y.dtype)])
-        return (torch.from_numpy(np.ascontiguousarray(place.local(x))),
-                torch.from_numpy(np.ascontiguousarray(place.local(y))))
+        return (torch.from_numpy(np.ascontiguousarray(x_place.local(x))),
+                torch.from_numpy(np.ascontiguousarray(y_place.local(y))))
 
     return put

@@ -57,8 +57,10 @@ from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID
 from iterative_inference_segm_tpu_torch.entry import flagship_params
 from iterative_inference_segm_tpu_torch.models.fcn8 import fc_shape
 from iterative_inference_segm_tpu_torch.tools.timing import HISTORY_DIR, append_history, chained_ms, device_stamp
-from iterative_inference_segm_tpu_torch.train import train_dae as tdae
-from iterative_inference_segm_tpu_torch.train import train_fcn8 as tfcn
+from iterative_inference_segm_tpu_torch.train.train_dae import draw_step_randomness as draw_dae_randomness
+from iterative_inference_segm_tpu_torch.train.train_dae import make_dae_train_step
+from iterative_inference_segm_tpu_torch.train.train_fcn8 import draw_step_randomness as draw_fcn_randomness
+from iterative_inference_segm_tpu_torch.train.train_fcn8 import make_fcn8_train_step
 from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer
 
 HISTORY = HISTORY_DIR / "train_history_torch.jsonl"
@@ -133,15 +135,15 @@ def make_cells(args, batch: int, crop: int, augment: bool, device, params=None) 
 
     fcn = _clone(fcn0)
     fcn_opt = make_optimizer(tcfg, fcn)
-    fcn_step, _ = tfcn.make_fcn8_train_step(cfg, tcfg, fcn_opt, augment=augment,
+    fcn_step, _ = make_fcn8_train_step(cfg, tcfg, fcn_opt, augment=augment,
                                             fc_channels=int(fcn["fc6"]["w"].shape[0]))
 
     def fcn_train():
-        rand = tfcn.draw_step_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, device=device)
+        rand = draw_fcn_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, device=device)
         return fcn_step(fcn, images, labels, rand)
 
     def fcn_flops():
-        rand = tfcn.draw_step_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, device="cpu")
+        rand = draw_fcn_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, device="cpu")
         x, y = fcn_step.stages.prepare(images, labels, rand)
         shape = fc_shape(x.shape, int(fcn["fc6"]["w"].shape[0]))
         masks = tuple(torch.ones(shape, dtype=torch.bool, device=x.device) for _ in range(2))
@@ -153,16 +155,16 @@ def make_cells(args, batch: int, crop: int, augment: bool, device, params=None) 
 
     dae = _clone(dae0)
     dae_opt = make_optimizer(tcfg, dae)
-    dae_step, _ = tdae.make_dae_train_step(cfg, tcfg, dae_opt, h_taps=("pool4",), sigma=1.0, from_gt=True,
+    dae_step, _ = make_dae_train_step(cfg, tcfg, dae_opt, h_taps=("pool4",), sigma=1.0, from_gt=True,
                                            dae_depth=3, augment=augment, corruption_impl="kernel")
     frozen = _clone(fcn0)
 
     def dae_train():
-        rand = tdae.draw_step_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, p_gt=1.0)
+        rand = draw_dae_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, p_gt=1.0)
         return dae_step(dae, frozen, images, labels, rand)
 
     def dae_flops():
-        rand = tdae.draw_step_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, p_gt=1.0)
+        rand = draw_dae_randomness(gen, batch=batch, hw=(h, w), crop=crop_hw, p_gt=1.0)
         x, y = dae_step.stages.prepare(images, labels, rand)
         _, taps = dae_step.stages.features(frozen, x)  # the FCN through pool4: the gt regime reads no probs
         y_tilde = torch.empty((*y.shape, cfg.n_classes), device=x.device)  # K1's: no matmul or convolution

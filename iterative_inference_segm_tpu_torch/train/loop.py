@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -36,6 +36,23 @@ class TrainConfig:
     # recompute the trained network's forward during backprop
     # (torch.utils.checkpoint): trades FLOPs for activation memory
     remat: bool = False
+
+
+class TrainState(NamedTuple):
+    """A trainer's state: the JAX ``TrainState``'s fields, with the
+    ``torch.optim.Adam`` of ``make_optimizer`` (which holds Adam's moments
+    and updates ``params`` in place) as ``opt_state``."""
+
+    step: int
+    params: dict
+    opt_state: torch.optim.Adam
+
+
+def init_train_state(params: dict, cfg: TrainConfig) -> tuple[TrainState, torch.optim.Adam]:
+    """``(TrainState at step 0, its optimizer)``, as the JAX
+    ``init_train_state`` returns ``(state, tx)``."""
+    opt = make_optimizer(cfg, params)
+    return TrainState(step=0, params=params, opt_state=opt), opt
 
 
 def make_optimizer(cfg: TrainConfig, params: dict) -> torch.optim.Adam:
@@ -96,23 +113,34 @@ class DataParallel:
     * ``sum`` / ``mean``: an eval count summed, a loss averaged;
     * ``replicate(params)``: rank 0's params on every rank;
     * ``writer``: whether this rank writes the workdir (rank 0).
+
+    A mesh with a 'space' axis also shards H (``parallel.spatial``): ``put``
+    gives the rank its band of rows, ``whole_rows`` gathers a band back
+    into the data shard's whole map and ``rows`` lays one out; the ranks of
+    a 'space' group draw one data rank's randomness; the one all-reduce
+    and the eval sums also sum over 'space' (its ranks hold parts of one
+    loss and gradient).
     """
 
     def __init__(self, mesh=None, *, void_label: int | None = None):
         self.mesh = mesh
         self.writer = True
         self.size, self.index = 1, 0
+        self.space_group = None
         self._put = lambda images, labels: (images, labels)
         if mesh is not None:
             import torch.distributed as dist
 
-            from iterative_inference_segm_tpu_torch.parallel.mesh import axis_index, axis_size
+            from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group, axis_index, axis_size, has_axis
             from iterative_inference_segm_tpu_torch.parallel.sharding import padded_batch_putter
 
             self.size, self.index = axis_size(mesh, "data"), axis_index(mesh, "data")
             self.writer = dist.get_rank() == 0
+            spatial = "space" if has_axis(mesh, "space") else None
+            if spatial:
+                self.space_group = axis_group(mesh, spatial)
             if void_label is not None:
-                self._put = padded_batch_putter(mesh, void_label=void_label)
+                self._put = padded_batch_putter(mesh, void_label=void_label, spatial_axis=spatial)
 
     def put(self, images, labels):
         return self._put(images, labels)
@@ -121,21 +149,46 @@ class DataParallel:
         draws = [draw() for _ in range(self.size)]
         return draws[self.index]
 
+    @property
+    def _sum_axis(self):
+        return None if self.space_group is None else "space"
+
+    def whole_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The data shard's whole map from this rank's band of H (equal
+        bands; ``t`` itself without a 'space' axis)."""
+        if self.space_group is None:
+            return t
+        from iterative_inference_segm_tpu_torch.parallel import comm
+
+        return comm.all_gather_cat(t, self.space_group, dim=1)
+
+    def rows(self, whole: torch.Tensor):
+        """The layout over 'space' of a map whose whole height ``whole``
+        has (None without a 'space' axis)."""
+        if self.space_group is None:
+            return None
+        import torch.distributed as dist
+
+        from iterative_inference_segm_tpu_torch.parallel.spatial import Rows
+
+        return Rows(self.space_group, dist.get_world_size(self.space_group), dist.get_rank(self.space_group),
+                    int(whole.shape[1]))
+
     def average_gradients(self, optimizer: torch.optim.Optimizer, loss: torch.Tensor) -> torch.Tensor:
         if self.mesh is None:
             return loss
         from iterative_inference_segm_tpu_torch.parallel.dp import average_gradients
 
         tensors = [t for g in optimizer.param_groups for t in g["params"]]
-        return average_gradients(tensors, loss, self.mesh)
+        return average_gradients(tensors, loss, self.mesh, sum_axis=self._sum_axis)
 
     def _reduce(self, t: torch.Tensor, *, mean: bool) -> torch.Tensor:
         if self.mesh is None:
             return t
         from iterative_inference_segm_tpu_torch.parallel import comm
-        from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
+        from iterative_inference_segm_tpu_torch.parallel.dp import reduce_group
 
-        t = comm.all_reduce_(t.clone(), axis_group(self.mesh, "data"))
+        t = comm.all_reduce_(t.clone(), reduce_group(self.mesh, "data", self._sum_axis))
         return t / self.size if mean else t
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,15 @@ with randomness of its own (the JAX step folds the device index into its
 key: each device draws its own crops, noise and coin), the loss and the
 gradients are averaged with one all-reduce (``parallel.dp``), the
 confusion counts summed. Only rank 0 writes the workdir.
+
+A ``('data', 'space')`` mesh also shards H over 'space'
+(``parallel.spatial``): the step takes each rank's band of rows, gathers
+the data shard's whole images and labels to crop them (the same crop on
+every rank of a 'space' group) and to corrupt the labels (K1 and K2 index
+their noise by global pixel, so the whole map is corrupted and the rank
+keeps its band: the same draws as the unsharded step), then runs the
+frozen FCN, the DAE and the loss on its band; the loss's pixel count and
+the one all-reduce of the gradients sum over 'space' as well.
 """
 
 from __future__ import annotations
@@ -174,24 +183,32 @@ def make_dae_train_step(
             return kernels.corrupt_probs(probs, seed, sigma=sigma)
         return oracle.corrupt_probs(probs, oracle_generator(seed, probs.device), sigma=sigma)
 
-    def corrupt(labels, probs, rand: StepRandomness):
+    def corrupt(labels, probs, rand: StepRandomness, rows=None):
+        """The DAE's input; under H sharding (``rows``) from the whole
+        ``labels`` (and the whole FCN probabilities, gathered), the rank's
+        band of it."""
+        from iterative_inference_segm_tpu_torch.parallel.spatial import gather_rows, own_rows
+
         take_gt = p_gt >= 1.0 or (p_gt > 0.0 and rand.take_gt)
         if take_gt:
-            return gt_corrupted(labels, rand.noise_seed)
-        return fcn_corrupted(probs, rand.noise_seed)
+            y = gt_corrupted(labels, rand.noise_seed)
+        else:
+            y = fcn_corrupted(probs if rows is None else gather_rows(probs, rows), rand.noise_seed)
+        return y if rows is None else own_rows(y, rows)
 
     arch_apply = score_apply_fn(arch)
     arch_kw = score_kwargs(arch, depth=dae_depth, encoder=dae_encoder)
 
-    def apply(dae_params, y, h):
-        return arch_apply(dae_params, y, h, compute_dtype=tcfg.compute_dtype, **arch_kw)
+    def apply(dae_params, y, h, rows=None):
+        on_rows = {} if rows is None else {"space": rows}
+        return arch_apply(dae_params, y, h, compute_dtype=tcfg.compute_dtype, **arch_kw, **on_rows)
 
-    def loss(dae_params, y_tilde, h, labels):
+    def loss(dae_params, y_tilde, h, labels, rows=None):
         if tcfg.remat and torch.is_grad_enabled():
-            recon = checkpoint(apply, dae_params, y_tilde, h, use_reentrant=False)
+            recon = checkpoint(apply, dae_params, y_tilde, h, rows, use_reentrant=False)
         else:
-            recon = apply(dae_params, y_tilde, h)
-        return crossentropy_probs(recon, labels, n_classes=n_classes), recon
+            recon = apply(dae_params, y_tilde, h, rows)
+        return crossentropy_probs(recon, labels, n_classes=n_classes, space=rows), recon
 
     def prepare(images, labels, rand: StepRandomness, *, crop: bool):
         if crop:
@@ -209,23 +226,36 @@ def make_dae_train_step(
     # step's forward by itself); probs are then None
     depth = backbone_depth(h_taps) if p_gt >= 1.0 else None
 
-    def features(fcn_params, images):
+    def features(fcn_params, images, rows=None):
         with torch.no_grad():
             if depth is not None:
                 _, h = fcn8_backbone(fcn_params, images, return_features=h_taps,
-                                     compute_dtype=tcfg.compute_dtype, through=depth)
+                                     compute_dtype=tcfg.compute_dtype, through=depth, space=rows)
                 return None, h
             return fcn8_apply(
-                fcn_params, images, return_features=h_taps, compute_dtype=tcfg.compute_dtype
+                fcn_params, images, return_features=h_taps, compute_dtype=tcfg.compute_dtype, space=rows
             )
 
+    def staged(images, labels, rand, *, crop):
+        """``(images, labels, whole labels, rows)``: the prepared batch, and
+        under H sharding the rank's bands of it, the data shard's whole
+        labels (for the corruption) and the layout (None without)."""
+        if dp.space_group is None:
+            images, labels = prepare(images, labels, rand, crop=crop)
+            return images, labels, labels, None
+        from iterative_inference_segm_tpu_torch.parallel.spatial import own_rows
+
+        images, labels = prepare(dp.whole_rows(images), dp.whole_rows(labels), rand, crop=crop)
+        rows = dp.rows(images)
+        return own_rows(images, rows), own_rows(labels, rows), labels, rows
+
     def train_step(dae_params, fcn_params, images, labels, rand: StepRandomness):
-        images, labels = prepare(images, labels, rand, crop=augment)
-        probs, h = features(fcn_params, images)
+        images, labels, whole, rows = staged(images, labels, rand, crop=augment)
+        probs, h = features(fcn_params, images, rows)
         with torch.no_grad():
-            y_tilde = corrupt(labels, probs, rand)
+            y_tilde = corrupt(whole, probs, rand, rows)
         optimizer.zero_grad(set_to_none=True)
-        value, _ = loss(dae_params, y_tilde, h, labels)
+        value, _ = loss(dae_params, y_tilde, h, labels, rows)
         value.backward()
         value = dp.average_gradients(optimizer, value)
         optimizer.step()
@@ -233,10 +263,10 @@ def make_dae_train_step(
 
     def eval_step(dae_params, fcn_params, images, labels, rand: StepRandomness):
         with torch.no_grad():
-            images, labels = prepare(images, labels, rand, crop=False)
-            probs, h = features(fcn_params, images)
-            y_tilde = corrupt(labels, probs, rand)
-            value, recon = loss(dae_params, y_tilde, h, labels)
+            images, labels, whole, rows = staged(images, labels, rand, crop=False)
+            probs, h = features(fcn_params, images, rows)
+            y_tilde = corrupt(whole, probs, rand, rows)
+            value, recon = loss(dae_params, y_tilde, h, labels, rows)
             cm = confusion_matrix(torch.argmax(recon, dim=-1), labels, n_classes=n_classes)
         return dp.sum(cm), dp.mean(value)
 
@@ -324,8 +354,8 @@ def train_dae(
         n_images = 0
         for images, labels in batches(train_data):
             x, y = to_device(*dp.put(images, labels), device)
-            rand = dp.own(lambda: draw_step_randomness(
-                gen, batch=int(y.shape[0]), hw=(int(y.shape[1]), int(y.shape[2])),
+            rand = dp.own(lambda: draw_step_randomness(  # the whole frame's crop, also for a band of its rows
+                gen, batch=int(y.shape[0]), hw=tuple(int(d) for d in np.shape(labels)[1:3]),
                 crop=dataset.train_crop if augment else None, p_gt=p_gt,
             ))
             losses.append(train_step(dae_params, fcn_params, x, y, rand))

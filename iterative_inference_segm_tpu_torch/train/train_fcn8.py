@@ -116,6 +116,9 @@ def make_fcn8_train_step(
     (``prepare``, ``masks``, ``loss``) for timing.
     """
     dp = DataParallel(mesh)
+    if dp.space_group is not None:
+        raise ValueError("the FCN-8 step shards the batch over 'data' alone, as the JAX step; a 'space' axis "
+                         "(H sharding) is the DAE step's")
     n_classes = cfg.n_classes
 
     def logits_fn(params, images, masks):

@@ -8,7 +8,11 @@ other. ``save_npz`` / ``load_npz`` take and return the port's parameter trees;
 ``utils/jax_bridge.py`` converts the layouts. The training-state half
 (``save_checkpoint`` / ``restore_checkpoint`` / ``latest_step``) replaces
 the JAX package's orbax directories with one ``torch.save`` file per step;
-the two formats are not interchangeable.
+the two formats are not interchangeable. ``restore_checkpoint_sharded``
+reads each rank's part of every leaf into a mesh layout (the fc6/fc7
+tensor-parallel one, or replicated), and ``save_checkpoint(...,
+shardings=)`` writes the whole leaves from the ranks' parts, so the save
+and the restore topologies are independent.
 """
 
 from __future__ import annotations
@@ -154,10 +158,51 @@ def load_npz(path: str | os.PathLike, template: dict) -> dict:
 _STATE_FILE = "state.pt"
 
 
-def save_checkpoint(directory: str | os.PathLike, step: int, state: dict) -> None:
+def _tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts/lists/tuples, with the
+    matching leaves of the trees in ``rest``."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def _whole(part, place):
+    """The whole leaf from every rank's ``part`` under ``place`` (a
+    ``parallel.sharding.Placement``): gathered over each axis that shards
+    it, the last one first (``Placement.local`` cut the first first)."""
+    if not isinstance(part, torch.Tensor):
+        return part
+    from torch.distributed.tensor import Shard
+
+    from iterative_inference_segm_tpu_torch.parallel import comm
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
+
+    for name, p in reversed(list(zip(place.mesh.mesh_dim_names, place.placements))):
+        if isinstance(p, Shard):
+            part = comm.all_gather_cat(part.detach().contiguous(), axis_group(place.mesh, name), dim=p.dim)
+    return part.detach().cpu()
+
+
+def save_checkpoint(directory: str | os.PathLike, step: int, state: dict, *, shardings=None) -> None:
     """Write ``state`` (tensors, numbers, lists and dicts) at
     ``directory/<step>/state.pt``, synchronously; the file appears whole
-    (written beside it, then renamed) or not at all."""
+    (written beside it, then renamed) or not at all.
+
+    ``shardings``: a tree of ``parallel.sharding.Placement`` matching
+    ``state`` (``parallel.tp.tp_shardings``, or replicated ones): every rank
+    of the mesh calls this with its parts, the whole leaves are gathered,
+    rank 0 writes them (the file one whole ``state`` would give) and every
+    rank returns when it is there."""
+    if shardings is not None:
+        import torch.distributed as dist
+
+        state = _tree_map(_whole, state, shardings)
+        if dist.get_rank() == 0:
+            save_checkpoint(directory, step, state)
+        dist.barrier()
+        return
     path = Path(directory) / str(step)
     path.mkdir(parents=True, exist_ok=True)
     tmp = path / f"{_STATE_FILE}.{os.getpid()}.tmp"
@@ -174,6 +219,30 @@ def restore_checkpoint(directory: str | os.PathLike, step: int) -> dict:
     """Read back what ``save_checkpoint`` wrote at ``step``, on the CPU."""
     return torch.load(Path(directory) / str(step) / _STATE_FILE, map_location="cpu",
                       weights_only=True)
+
+
+def restore_checkpoint_sharded(directory: str | os.PathLike, step: int, template, shardings):
+    """Restore a checkpoint straight into a mesh layout: this rank's part of
+    every leaf. ``template`` is a tree of tensors giving the structure, the
+    shapes (the whole leaves'), and the dtype and device of each result;
+    ``shardings`` the matching tree of ``parallel.sharding.Placement``
+    (``parallel.tp.tp_shardings``'s fc6/fc7 layout, or all replicated).
+
+    The file is mapped, not read: each leaf's part is cut on the host from
+    the mapping and only that part is copied, to the template's device, so
+    no rank holds a whole fc6/fc7 leaf there. Any checkpoint restores onto
+    any layout: one written from a single process, or from the ranks'
+    parts (``save_checkpoint(..., shardings=)``)."""
+    wait_for_checkpoints()
+    state = torch.load(Path(directory) / str(step) / _STATE_FILE, map_location="cpu", mmap=True,
+                       weights_only=True)
+
+    def part(ref, place, full):
+        if tuple(full.shape) != tuple(ref.shape):
+            raise ValueError(f"checkpoint leaf {tuple(full.shape)} does not match the template's {tuple(ref.shape)}")
+        return place.local(full).to(device=ref.device, dtype=ref.dtype, copy=True).contiguous()
+
+    return _tree_map(part, template, shardings, state)
 
 
 def latest_step(directory: str | os.PathLike) -> int | None:

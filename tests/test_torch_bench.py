@@ -176,8 +176,15 @@ def test_entry_returns_the_jax_entrys_shapes():
 
 
 def test_entry_cli_line_and_multichip_refusal(capsys, monkeypatch):
-    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1 step I"):
-        tentry.main(["multichip", "8"])
+    """``multichip [N]`` is no longer refused: it runs ``dryrun_multichip(N)``
+    (8 by default, as the JAX file's) on the device asked for and prints
+    the JAX line (the dry run itself: ``tests/test_torch_spatial.py``)."""
+    runs = []
+    monkeypatch.setattr(tentry, "dryrun_multichip", lambda n, device: runs.append((n, device)))
+    assert tentry.main(["multichip", "--device", "cpu"]) == 0
+    assert tentry.main(["multichip", "3", "--device", "cpu"]) == 0
+    assert runs == [(8, "cpu"), (3, "cpu")]
+    assert capsys.readouterr().out.split("\n")[:2] == ["dryrun_multichip(8) OK", "dryrun_multichip(3) OK"]
     monkeypatch.setattr(tentry, "entry", lambda device: (lambda f, d, x: torch.zeros((1, 360, 480, 11),
                                                                                     dtype=torch.bfloat16), (0, 0, 0)))
     assert tentry.main(["--device", "cpu"]) == 0

@@ -10,6 +10,7 @@ entry points' phases (26-29) over stand-ins for the twins: the launches
 each configuration must make, and a wrong count, stamp or line failing;
 refine_tail held at the shapes each bench configuration hands it."""
 
+import importlib
 import json
 
 import pytest
@@ -207,7 +208,8 @@ def test_profiled_training_marks_each_batch_copy(monkeypatch):
 
     from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
     from iterative_inference_segm_tpu_torch.models.fcn8 import init_fcn8
-    from iterative_inference_segm_tpu_torch.train import train_dae as trainer
+    # the module (the package's ``train_dae`` is the trainer function)
+    trainer = importlib.import_module("iterative_inference_segm_tpu_torch.train.train_dae")
     from iterative_inference_segm_tpu_torch.train.loop import TrainConfig
 
     cfg = dataclasses.replace(chip_smoke.CAMVID, n_classes=3, void_label=3, train_crop=(32, 32))
@@ -492,3 +494,75 @@ def test_entry_phase_wants_the_jax_line(monkeypatch):
     monkeypatch.setattr(chip_smoke, "ENTRY_LINE", "entry() OK (1, 360, 480, 11) bfloat16")
     with pytest.raises(AssertionError, match="entry"):
         chip_smoke.run_entry_phase("cpu")
+
+
+def _fake_space_launch(plant=None):
+    """A stand-in for phase 30's one launch: 2 ranks that pass, each with
+    its exchanges and launches. ``plant(rank, result)`` may spoil one."""
+    k = chip_smoke.K_STEPS
+
+    def launch_ranks(fn, cases, *, mesh, device, backend, kernels):
+        assert fn is chip_smoke.par_cases and cases == [("space", "par_space", {})]
+        assert (mesh.axis_names, mesh.axis_sizes, backend, device) == (("data", "space"), (1, 2), "gloo", "cuda:0")
+        assert set(kernels) == {"refine_tail", "corruption"}
+        out = []
+        for r in range(2):
+            res = {"secs": 1.0, "fcn_s": 1.0, "general_s": 1.0, "half_s": 1.0, "step_s": 1.0, "loss": 2.0,
+                   "log": {"isend": [(r, 1 - r)] * 3, "irecv": [(r, 1 - r)] * 3, "all_gather_cat": 0,
+                           "all_reduce_": 0},
+                   "k3": 3 + k + 1, "strided": 0, "k1": 1, "tail_err": 1e-7, "tail_agree": 1.0, "tail_layouts": 4,
+                   "k1_equal": True, "k1_shapes": [(2, 224, 224)]}
+            if r == 0:
+                names = ("fcn", "g0", "gk", "h0", "hk")
+                res.update(err={n: 1e-6 for n in names}, agree={n: 1.0 for n in names}, loss_rel=1e-7, m1_rel=1e-6,
+                           m1_leaf="enc1/w")
+            if plant:
+                plant(r, res)
+            out.append({"space": res})
+        return out
+
+    return launch_ranks
+
+
+@pytest.mark.parametrize("case,rank,spoil", [
+    (None, 0, {}),
+    ("a_gather", 1, {"log": {"isend": [(1, 0)], "irecv": [(1, 0)], "all_gather_cat": 1, "all_reduce_": 0}}),
+    ("an_all_reduce", 0, {"log": {"isend": [(0, 1)], "irecv": [(0, 1)], "all_gather_cat": 0, "all_reduce_": 1}}),
+    ("no_halo", 0, {"log": {"isend": [], "irecv": [], "all_gather_cat": 0, "all_reduce_": 0}}),
+    ("k3_missing_in_a_rank", 1, {"k3": 0}),
+    ("k1_missing_in_a_rank", 1, {"k1": 0}),
+    ("k3_strided", 0, {"strided": 1}),
+    ("k3_off_its_plain_version", 1, {"tail_err": 1e-3}),
+    ("k1_off_its_plain_version", 1, {"k1_equal": False}),
+    ("y_k_off", 0, {"err": {"fcn": 1e-6, "g0": 1e-6, "gk": 1e-3, "h0": 1e-6, "hk": 1e-6}}),
+    ("half_argmax_off", 0, {"agree": {"fcn": 1.0, "g0": 1.0, "gk": 1.0, "h0": 1.0, "hk": 0.99}}),
+    ("step_loss_off", 0, {"loss_rel": 1e-4}),
+    ("step_gradient_off", 0, {"m1_rel": 1e-3}),
+])
+def test_space_phase_holds_the_ranks_to_one_process_and_the_contract(monkeypatch, capsys, case, rank, spoil):
+    """Phase 30's checks over every rank: the FCN forward's exchanges
+    (neighbours only, no gather, no all-reduce at 12 /32 rows over 2), the
+    launches each rank must make, the kernels against their plain versions,
+    the sharded runs against one process; then ``multichip 4``'s line."""
+    from iterative_inference_segm_tpu_torch.parallel import launch
+
+    def plant(r, res):
+        if r == rank:
+            res.update(spoil)
+
+    def multichip(argv):
+        assert argv == ["multichip", "4"]
+        print(chip_smoke.MULTICHIP_LINE)
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(launch, "launch_ranks", _fake_space_launch(plant))
+    monkeypatch.setattr(chip_smoke.entry_point, "main", multichip)
+    if case is None:
+        got = chip_smoke.run_space_phase(SMI)
+        assert got == {"refine_tail": 2 * (3 + chip_smoke.K_STEPS + 1), "corrupt_onehot": 2}
+        out = capsys.readouterr().out
+        assert "dryrun_multichip(4) OK" in out and "not a speed figure" in out
+    else:
+        with pytest.raises(AssertionError, match="space"):
+            chip_smoke.run_space_phase(SMI)

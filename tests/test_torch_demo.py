@@ -82,7 +82,7 @@ def _fcn8_inputs(case, tmp):
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_twin(case, tmp_path, capsys):
+def test_twin(case, tmp_path, capsys, monkeypatch):
     tool, flags, refusal = CASES[case]
     if refusal is not None:
         with pytest.raises(SystemExit) as e:
@@ -116,6 +116,7 @@ def test_twin(case, tmp_path, capsys):
             assert '"traceEvents"' in trace and "conv" in trace
         return
     if tool == "seeds":
+        monkeypatch.setenv("OMP_NUM_THREADS", "1")  # the demo's process, as this one, on one thread
         hist = tmp_path / "h.jsonl"
         assert seeds.main(["--seeds", "1", "--configs", "flagship", "--history", str(hist),
                            "--demo-args", *TINY_DEMO]) == 0

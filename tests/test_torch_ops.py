@@ -171,5 +171,6 @@ print(" ".join(mods))
     walked = set(out.stdout.split())
     assert len(walked) >= 34  # every module was walked, these among them:
     for mod in ("inference.iterative", "inference.search", "ops.vpu_probe", "tools.vpu_probe",
-                "tools.profile_general", "tools.tail_bench", "scripts.iterative_inference"):
+                "tools.profile_general", "tools.tail_bench", "scripts.iterative_inference", "parallel.spatial",
+                "entry"):
         assert "iterative_inference_segm_tpu_torch." + mod in walked, mod

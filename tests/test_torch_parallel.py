@@ -380,9 +380,12 @@ def test_padded_eval_counts_exactly_the_real_rows(both):
 
 
 def test_spatial_sharding_is_refused_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="spatial.*ROADMAP.md"):
+    """Spatial (H) sharding is ported (Queue 1 step I): ``spatial_axis`` is
+    no longer refused, and like the batch axis it needs a launched mesh
+    (``tests/test_torch_spatial.py`` holds what it places)."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsharding.batch_sharding(None, 4, spatial_axis="space")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tsharding.shard_batch(None, np.zeros((2, 2)), spatial_axis="space")
 
 

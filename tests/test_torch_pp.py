@@ -3,7 +3,9 @@ the same inputs and (bridged) weights: ``make_gpipe`` and
 ``make_gpipe_stacked`` on toy stages, ``make_pp_flagship`` at 2 stages (2
 gloo ranks) and 3 stages (3 ranks) on the half and the general engine,
 DP x PP on a ('data', 'stage') mesh of (2, 2) (4 ranks), and
-``Predictor(pp_mesh=...)``; the JAX side runs on as many faked CPU devices.
+``Predictor(pp_mesh=...)``, all in one launch of 4 ranks (the 2- and
+3-stage meshes over its first ranks); the JAX side runs on as many faked
+CPU devices.
 The toy's gradient is held here too; ``tests/test_torch_pp_grad.py`` holds
 the gradients of the rest.
 
@@ -115,12 +117,12 @@ def port_runs(p):
                                "kw": dict(num_steps=3, **HALF), "batch_axis": "data"}),
         ("stacked_dp", "gpipe_stacked", {"stacked": ks2, "x": stacked_inputs(2)[1][:3], "batch_axis": "data"}),
         ("stacked4", "gpipe_stacked", {"stacked": ks4, "x": x4, "mesh_shape": (("stage",), (4,))}),
+        ("misuse", "pipeline_misuse", {}),
     ]
-    out = {}
-    for names, sizes, cases in ((("stage",), (2,), two), (("stage",), (3,), three),
-                                (("data", "stage"), (2, 2), four)):
-        out[len(cases) and sizes] = launch_ranks(ranks.run_cases, cases, mesh=MeshSpec(names, sizes), device="cpu")
-    return out
+    groups = [(("stage",), (2,), two), (("stage",), (3,), three), (("data", "stage"), (2, 2), four)]
+    # one launch of 4 ranks; each group on a mesh over its first ranks
+    got = launch_ranks(ranks.run_groups, groups, mesh=MeshSpec(("data",), (4,)), device="cpu")
+    return {sizes: [res[sizes] for res in got[: int(np.prod(sizes))]] for _, sizes, _ in groups}
 
 
 def jax_runs(p):
@@ -221,7 +223,8 @@ def test_gpipe_hands_over_one_wire_per_microbatch(both):
     ("engine", "unknown engine"), ("arch", "dae_arch='dae' only"),
 ])
 def test_pipeline_misuse_raises_as_in_jax(both, case, match):
-    assert two(both)[0]["toy"]["errors"][case].startswith("ValueError") and match in two(both)[0]["toy"]["errors"][case]
+    errors = {**two(both)[0]["toy"]["errors"], **both[0][(2, 2)][0]["misuse"]}  # misuse: meshes over all 4 ranks
+    assert errors[case].startswith("ValueError") and match in errors[case]
 
 
 @pytest.mark.parametrize("case", ["grad", "remat", "remat_stacked"])

@@ -53,14 +53,17 @@ def data():
 
 
 def jax_side(d):
+    """Jitted (one compile each, kept by the persistent cache; op by op,
+    every op compiles afresh in every run)."""
     p, x = d["jfcn"], jnp.asarray(d["x"])
-    probs, _ = jfcn8.fcn8_apply(p, x)
+    probs = jax.jit(lambda pp, xx: jfcn8.fcn8_apply(pp, xx)[0])(p, x)
 
-    def loss_fn(pp):
-        return j_xent(jfcn8.fcn8_logits(pp, x), jnp.asarray(d["y"]), n_classes=C)
+    def loss_fn(pp, xx, yy):
+        return j_xent(jfcn8.fcn8_logits(pp, xx), yy, n_classes=C)
 
-    loss, grads = jax.value_and_grad(loss_fn)(p)
-    return {"probs": np.asarray(probs), "logits_masked": np.asarray(jfcn8.fcn8_logits(p, x, dropout_rng=d["key"])),
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(p, x, jnp.asarray(d["y"]))
+    masked = jax.jit(lambda pp, xx, k: jfcn8.fcn8_logits(pp, xx, dropout_rng=k))(p, x, d["key"])
+    return {"probs": np.asarray(probs), "logits_masked": np.asarray(masked),
             "loss": float(loss), "grads": jax.device_get(grads)}
 
 

@@ -27,6 +27,19 @@ def run_cases(mesh, device, cases):
     return {name: globals()[fn](mesh, device, **kw) for name, fn, kw in cases}
 
 
+def run_groups(mesh, device, groups):
+    """``groups``: ``[(axis names, sizes, cases)]``; each group's cases run
+    as in ``run_cases`` on a mesh over the launch's first ``prod(sizes)``
+    ranks, by those ranks alone. Returns ``{sizes: {name: result}}`` of the
+    groups this rank took part in."""
+    out = {}
+    for names, sizes, cases in groups:
+        sub = make_mesh(names, sizes, ranks=int(np.prod(sizes)))
+        if sub.get_coordinate() is not None:
+            out[tuple(sizes)] = run_cases(sub, device, cases)
+    return out
+
+
 def raises(call) -> str:
     """The message of what ``call`` raises (its type and text), or ''."""
     try:
@@ -350,10 +363,6 @@ def gpipe_toy(mesh, device, params, xs):
     isend_calls = sends[0]
     errors = {
         "count": raises(lambda: pp.make_gpipe((s0, s1, s1), mesh)),
-        "no_axis": raises(lambda: pp.make_gpipe((s0, s1), make_mesh(("data",), (2,)))),
-        "no_axis_stacked": raises(lambda: pp.make_gpipe_stacked(s0, make_mesh(("data",), (2,)))),
-        "no_axis_flagship": raises(lambda: pp.make_pp_flagship(make_mesh(("data",), (2,)), eps=0.1, num_steps=2)),
-        "width": raises(lambda: pp.make_pp_flagship(make_mesh(("data", "stage"), (2, 1)), eps=0.1, num_steps=2)),
         "renorm": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, renorm="softmax")),
         "knobs": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, engine="general", fold_tail=True)),
         "engine": raises(lambda: pp.make_pp_flagship(mesh, eps=0.1, num_steps=2, engine="fused")),
@@ -376,6 +385,22 @@ def gpipe_toy(mesh, device, params, xs):
              "remat_stacked": (grad(stacked, remat=True), grad(stacked, remat=False))}
     return {"out": out, "isend_calls": isend_calls, "stage": axis_index(mesh, "stage"), "errors": errors,
             "grads": grads}
+
+
+def pipeline_misuse(mesh, device):
+    """The pipelines on meshes without a 'stage' axis, or one too narrow,
+    formed over every rank of the launch."""
+    n = dist.get_world_size()
+
+    def stage(p, w, x):
+        return w
+
+    return {
+        "no_axis": raises(lambda: pp.make_gpipe((stage, stage), make_mesh(("data",), (n,)))),
+        "no_axis_stacked": raises(lambda: pp.make_gpipe_stacked(stage, make_mesh(("data",), (n,)))),
+        "no_axis_flagship": raises(lambda: pp.make_pp_flagship(make_mesh(("data",), (n,)), eps=0.1, num_steps=2)),
+        "width": raises(lambda: pp.make_pp_flagship(make_mesh(("data", "stage"), (n, 1)), eps=0.1, num_steps=2)),
+    }
 
 
 def gpipe_stacked(mesh, device, stacked, x, batch_axis=None, resident=False, mesh_shape=None):
@@ -498,3 +523,246 @@ def flagship_grad(mesh, device, jfcn, jdae, images, microbatches, kw, remat=Fals
     loss = torch.mean(torch.square(pp.merge_microbatches(yk)))
     grads = _grads_of(loss, [nets[name] for name in wrt])
     return {"loss": loss.item(), **dict(zip(wrt, grads))}
+
+
+# ------------------------------------------------------------------ spatial (H) sharding
+
+
+@contextlib.contextmanager
+def comm_log():
+    """Every collective the spatial ops make through ``parallel.comm``
+    while the block runs: ``{"isend": [(this group rank, peer)], "irecv":
+    [...], "all_gather_cat": n, "all_reduce_": n}``."""
+    from iterative_inference_segm_tpu_torch.parallel import comm
+
+    log = {"isend": [], "irecv": [], "all_gather_cat": 0, "all_reduce_": 0}
+    saved = {name: getattr(comm, name) for name in log}
+
+    def peer_call(name):
+        def call(t, peer, group, **kw):
+            log[name].append((dist.get_rank(group), peer))
+            return saved[name](t, peer, group, **kw)
+
+        return call
+
+    def counted(name):
+        def call(*a, **kw):
+            log[name] += 1
+            return saved[name](*a, **kw)
+
+        return call
+
+    comm.isend, comm.irecv = peer_call("isend"), peer_call("irecv")
+    comm.all_gather_cat, comm.all_reduce_ = counted("all_gather_cat"), counted("all_reduce_")
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(comm, name, fn)
+
+
+def _space_mesh(shape):
+    return make_mesh(("data", "space"), shape)
+
+
+def _whole(mesh, t):
+    return sharding.gather_batch(mesh, t.contiguous(), spatial_axis="space").float().numpy()
+
+
+def spatial_forwards(mesh, device, jfcn, jdae_g, jdae_h, x, x40):
+    """FCN-8's forward on ('data', 'space') (2, 2) and (1, 4) with the
+    collectives it made; the general engine (K = 3, and at H = 40 on (2,
+    2)) and the half engine (K = 2) on (1, 4); each whole (gathered after
+    the forward), with rank 0's unsharded run beside."""
+    from iterative_inference_segm_tpu_torch.inference.fused import make_half_refiner
+    from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner
+    from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
+    from iterative_inference_segm_tpu_torch.models.registry import score_logits_fn
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
+    from iterative_inference_segm_tpu_torch.parallel.spatial import rows_of
+
+    fcn, dae_g, dae_h = params_from_jax(jfcn), params_from_jax(jdae_g), params_from_jax(jdae_h)
+    one = dist.get_rank() == 0
+    out = {}
+    for name, shape in (("fcn22", (2, 2)), ("fcn14", (1, 4))):
+        mesh = _space_mesh(shape)
+        xs = sharding.shard_batch(mesh, torch.from_numpy(x), spatial_axis="space")
+        with torch.no_grad(), comm_log() as log:
+            probs, _ = fcn8_apply(fcn, xs, space=rows_of(axis_group(mesh, "space"), xs))
+        out[name] = {"probs": _whole(mesh, probs), "log": log}
+    general = dict(eps=0.2, num_steps=3, h_taps=("pool4",))
+    half = dict(eps=0.3, num_steps=2, h_taps=("pool4",), depth=3)
+    for name, shape, images, make, dae, kw in (
+            ("general14", (1, 4), x, make_refiner, dae_g, general),
+            ("general40", (2, 2), x40, make_refiner, dae_g, dict(general, num_steps=2)),
+            ("half14", (1, 4), x, make_half_refiner, dae_h, half)):
+        mesh = _space_mesh(shape)
+        args = (fcn8_apply, score_logits_fn("dae"), fcn, dae) if make is make_refiner else (fcn8_apply, fcn, dae)
+        xs = sharding.shard_batch(mesh, torch.from_numpy(images), spatial_axis="space")
+        y0, yk = make(*args, space_group=axis_group(mesh, "space"), **kw)(xs)
+        out[name] = {"y0": _whole(mesh, y0), "yk": _whole(mesh, yk)}
+        if one:
+            ref = make(*args, **kw)(torch.from_numpy(images))
+            out[name]["unsharded"] = tuple(t.float().numpy() for t in ref)
+    if one:
+        out["fcn_unsharded"] = fcn8_apply(fcn, torch.from_numpy(x))[0].numpy()
+    return out
+
+
+def spatial_ops(mesh, device, heights):
+    """Each sharded op against the op on the whole map, forward and
+    backward (f64), on ('data', 'space') (1, 4) and (2, 2) at ``heights``
+    (1..3 rows over 4 shards leave some empty); the worst error of each."""
+    from iterative_inference_segm_tpu_torch.ops import conv as C
+    from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
+    from iterative_inference_segm_tpu_torch.parallel.spatial import Rows
+
+    g = torch.Generator().manual_seed(0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=torch.float64)
+
+    w3, w7, w1, b = rnd(3, 4, 3, 3), rnd(3, 4, 7, 7), rnd(3, 4, 1, 1), rnd(3)
+    wt4, wt16, wd3, wdt4 = rnd(4, 4, 4, 4), rnd(4, 4, 16, 16), rnd(4, 1, 3, 3), rnd(4, 1, 4, 4)
+    ops = {
+        "conv3": lambda t, sp: C.conv2d(t, w3, b, space=sp),
+        "conv3_stride2": lambda t, sp: C.conv2d(t, w3, b, stride=2, space=sp),
+        "conv7": lambda t, sp: C.conv2d(t, w7, b, space=sp),
+        "conv1": lambda t, sp: C.conv2d(t, w1, b, space=sp),
+        "conv3_dilated": lambda t, sp: C.conv2d(t, w3, b, dilation=2, space=sp),
+        "deconv_k4s2": lambda t, sp: C.conv_transpose2d(t, wt4, stride=2, space=sp),
+        "deconv_k16s8": lambda t, sp: C.conv_transpose2d(t, wt16, stride=8, space=sp),
+        "depthwise": lambda t, sp: C.conv2d_depthwise(t, wd3, space=sp),
+        "depthwise_deconv": lambda t, sp: C.conv_transpose2d_depthwise(t, wdt4, stride=2, space=sp),
+        "max_pool": lambda t, sp: C.max_pool(t, space=sp),
+        "max_unpool": lambda t, sp: C.max_unpool(C.max_pool(t, space=sp) * 2.0 + 1.0, t, space=sp),
+        "avg_pool": lambda t, sp: C.avg_pool(t, space=sp),
+        "crop": lambda t, sp: C.crop_to(t, (sp.height if sp else t.shape[1]) - 3, 5, space=sp),
+    }
+    worst = {}
+    for shape in ((1, 4), (2, 2)):
+        m = _space_mesh(shape)
+        group, n, i = axis_group(m, "space"), shape[1], m.get_local_rank("space")
+        for height in heights:
+            x = rnd(2, height, 7, 4)
+            rows = Rows(group, n, i, height)
+            lo, hi = rows.span
+            for name, op in ops.items():
+                if (name == "avg_pool" and height < 2) or (name == "crop" and height < 4):
+                    continue
+                whole = x.clone().requires_grad_(True)
+                ref = op(whole, None)
+                cot = torch.randn(ref.shape, generator=torch.Generator().manual_seed(height), dtype=torch.float64)
+                (ref * cot).sum().backward()
+                band = x[:, lo:hi].clone().requires_grad_(True)
+                got = op(band, rows)
+                olo, ohi = rows.at(ref.shape[1]).span
+                (got * cot[:, olo:ohi]).sum().backward()
+                err = 0.0 if not got.numel() else float((got - ref[:, olo:ohi]).abs().max())
+                if band.numel():
+                    err = max(err, float((band.grad - whole.grad[:, lo:hi]).abs().max()))
+                if got.shape[1] != ohi - olo:
+                    err = float("inf")
+                worst[name] = max(worst.get(name, 0.0), err)
+    return worst
+
+
+def spatial_dae_step(mesh, device, cfg, jfcn, jdae, images, labels, crop, seed):
+    """One DAE train step (gt regime, K1's plain version) H-sharded on
+    ('data', 'space') (1, 4) against the same step unsharded: the losses
+    and each leaf's Adam first moment (its gradient, scaled)."""
+    from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer
+    from iterative_inference_segm_tpu_torch.train.train_dae import StepRandomness, make_dae_train_step
+
+    m = _space_mesh((1, 4))
+    tc = TrainConfig()
+    rand = StepRandomness(noise_seed=seed, crop=tuple(torch.from_numpy(a) for a in crop), take_gt=True)
+    out = {}
+    for name, step_mesh in (("unsharded", None), ("sharded", m)):
+        dae = params_from_jax(jdae)
+        opt = make_optimizer(tc, dae)
+        step, eval_step = make_dae_train_step(cfg, tc, opt, h_taps=("pool4",), sigma=0.5, from_gt=True,
+                                              dae_depth=4, corruption_impl="kernel", mesh=step_mesh)
+        x, y = torch.from_numpy(images), torch.from_numpy(labels)
+        if step_mesh is not None:
+            x, y = sharding.shard_batch(m, (x, y), spatial_axis="space")
+        with contextlib.redirect_stdout(io.StringIO()):
+            loss = step(dae, params_from_jax(jfcn), x, y, rand)
+            cm, eval_loss = eval_step(dae, params_from_jax(jfcn), x, y, rand)
+        out[name] = {"loss": float(loss), "eval_loss": float(eval_loss), "cm": cm.numpy(),
+                     "m1": {f"{layer}/{k}": opt.state[t]["exp_avg"].numpy() for layer, v in dae.items()
+                            for k, t in v.items()}}
+    return out
+
+
+def spatial_trainer(mesh, device, cfg, jfcn, images, labels):
+    """``train_dae`` for one epoch on ('data', 'space') (1, 4), against the
+    same trainer unsharded: its history (the bands are put by the
+    trainer; the crops are drawn for the whole frame)."""
+    from iterative_inference_segm_tpu_torch.train.loop import TrainConfig
+    from iterative_inference_segm_tpu_torch.train.train_dae import train_dae
+
+    data = [(images, labels)]
+    out = {}
+    for name, m in (("unsharded", None), ("sharded", _space_mesh((1, 4)))):
+        with contextlib.redirect_stdout(io.StringIO()):
+            r = train_dae(fcn_params=params_from_jax(jfcn), dataset=cfg, train_data=data, val_data=data,
+                          tcfg=TrainConfig(max_epochs=1, seed=3), h_taps=("pool4",), sigma=0.5, from_gt=True,
+                          dae_depth=4, dae_widths=(8, 16, 32, 64), corruption_impl="kernel", mesh=m)
+        out[name] = r["history"][-1]
+    return out
+
+
+def sharded_restore(mesh, device, jparams, jparams2, workdir):
+    """JAX ``tests/test_checkpoint.py:137,162``' twins on ('data',
+    'model') (2, 2): a replicated save restored onto the TP layout, and a
+    TP-sharded save (the ranks' parts) restored replicated; each leaf's
+    part, and the part its placement cuts from the whole leaf."""
+    from iterative_inference_segm_tpu_torch.parallel.tp import shard_params_tp, tp_shardings
+    from iterative_inference_segm_tpu_torch.utils.checkpoint import restore_checkpoint_sharded, save_checkpoint
+
+    m = make_mesh(("data", "model"), (2, 2))
+    params, params2 = params_from_jax(jparams), params_from_jax(jparams2)
+    if dist.get_rank() == 0:
+        save_checkpoint(f"{workdir}/ck", 3, params)
+    dist.barrier()
+    shardings = tp_shardings(params, m)
+    tp = restore_checkpoint_sharded(f"{workdir}/ck", 3, params, shardings)
+    save_checkpoint(f"{workdir}/ck2", 0, shard_params_tp(params2, m), shardings=tp_shardings(params2, m))
+    repl = {layer: {k: sharding.replicated_sharding(m) for k in v} for layer, v in params2.items()}
+    back = restore_checkpoint_sharded(f"{workdir}/ck2", 0, params2, repl)
+
+    def parts(tree, whole, places):
+        return {f"{layer}/{k}": (t.numpy(), places[layer][k].local(whole[layer][k]).numpy(),
+                                 tuple(repr(p) for p in places[layer][k].placements))
+                for layer, v in tree.items() for k, t in v.items()}
+
+    return {"tp": parts(tp, params, shardings), "replicated": parts(back, params2, repl)}
+
+
+def dryrun_legs(mesh, device, workdir):
+    """``entry.dryrun_multichip``'s legs in this launch's 4 ranks."""
+    from iterative_inference_segm_tpu_torch import entry
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return entry._dryrun_legs(mesh, device, dist.get_world_size(), workdir)
+
+
+def spatial_placements(mesh, device, x):
+    """``batch_sharding``/``shard_batch``/``gather_batch`` with
+    ``spatial_axis`` on ('data', 'space') (2, 2); the FCN-8 step's refusal
+    of a 'space' axis."""
+    from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID
+    from iterative_inference_segm_tpu_torch.train.loop import TrainConfig, make_optimizer
+    from iterative_inference_segm_tpu_torch.train.train_fcn8 import make_fcn8_train_step
+
+    m = _space_mesh((2, 2))
+    w = {"conv": {"w": torch.zeros(1)}}
+    fcn_refusal = raises(lambda: make_fcn8_train_step(CAMVID, TrainConfig(), make_optimizer(TrainConfig(), w), mesh=m))
+    t = torch.from_numpy(x)
+    place = sharding.batch_sharding(m, 4, spatial_axis="space")
+    band = sharding.shard_batch(m, t, spatial_axis="space")
+    flat = sharding.shard_batch(m, torch.arange(4.0), spatial_axis="space")
+    return {"placements": tuple(repr(p) for p in place.placements), "band": band.numpy(), "flat": flat.numpy(),
+            "whole": sharding.gather_batch(m, band, spatial_axis="space").numpy(),
+            "coords": (axis_index(m, "data"), axis_index(m, "space")), "fcn_refusal": fcn_refusal}
