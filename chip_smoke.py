@@ -12,8 +12,9 @@ data path (packed files on both wires, device prefetch, an EM dataset of two
 classes) and the weight import and profiling utilities, then the parallel
 layer: data-parallel training and serving, fc6/fc7 tensor parallelism and
 the pipeline (serving, and gradients through it), in ranks that share the
-card; last, the measuring entry points: the bench, serving-bench and
-training-bench twins and entry().
+card; then the measuring entry points: the bench, serving-bench and
+training-bench twins and entry(); spatial (H) sharding; last, the
+phase-major fused engine and its full-resolution step kernel.
 
 Run from the repository root with no arguments:
 
@@ -21,9 +22,10 @@ Run from the repository root with no arguments:
 
 Phases:
  1. device   -- a CUDA card is required (there is no CPU fallback)
- 2. build    -- nvcc builds csrc/refine_tail.cu, csrc/corruption.cu and
-                csrc/vpu_probe.cu for sm_90a, and g++ the native input
-                runtime (native/input_runtime.cc), all at once
+ 2. build    -- nvcc builds csrc/refine_tail.cu, csrc/corruption.cu,
+                csrc/vpu_probe.cu and csrc/septail_step.cu for sm_90a, and
+                g++ the native input runtime (native/input_runtime.cc), all
+                at once
  3. kernel   -- the layouts (shapes, strides, dtypes) the engines hand
                 refine_tail at its three call sites (half-engine step,
                 rectification, general-engine step), all row-packed; the
@@ -199,6 +201,21 @@ Each rank counts its own kernel launches; the kernel report adds them.
                 versions (phase 3's and phase 7's limits), outside the
                 counted runs; then python -m ...entry multichip 4 on the
                 card (4 ranks sharing it; its launches are not counted)
+31. fused    -- the phase-major engine: septail_step against its plain
+                version at the bench step as the bench twin's pipeline hands
+                it (batch 128, C = 11, 360x480; bf16 carry within 2^-8 and
+                argmax >= 99.9%, f32 carry within 1e-5), timed warm and cold
+                (L2 flushed) against its bound, beside the plain version;
+                at C = 2 and 33, a 2x2 frame (every tap on an edge), NHWC
+                and channel-leading s; C = 129 raises; the gradient through
+                one kernel step against the plain version's, per leaf; then,
+                the counts set to 0: the bench twin --engine fused
+                --dae-tail sep at batch 128 with a bf16 and an f32 carry
+                (septail_step K a forward, refine_tail none), the
+                fused_bench twin's four variants (images/s), the engine
+                against the general engine with the 'sep' tail on the card
+                (f32, TF32 off, batch 2: 1e-4, argmax >= 99.9%), and
+                make_fused_refiner card against CPU on one image (f32)
 Phases 4, 10, 12, 13, 16-20, 22, 24-27, 29 and 30 also assert that no refine_tail
 launch of theirs took the kernel's strided staging. Every phase asserts; any failure
 (in any rank) raises and the exit code is non-zero. The line before the last is the kernel
@@ -233,11 +250,12 @@ from iterative_inference_segm_tpu_torch.data.native_loader import NativeDataset
 from iterative_inference_segm_tpu_torch.data.pipeline import draw_crop_and_flip, normalize_image
 from iterative_inference_segm_tpu_torch.data.prefetch import device_prefetch
 from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
+from iterative_inference_segm_tpu_torch.inference import fused as fused_engine
 from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn
 from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner, refinement_scan
 from iterative_inference_segm_tpu_torch.inference.predictor import Predictor
 from iterative_inference_segm_tpu_torch.inference.search import grid_search_eps_k, grid_search_eps_k_half
-from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_logits, init_dae
+from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_core, dae_logits, init_dae
 from iterative_inference_segm_tpu_torch.models.fcn8 import dropout_masks, fcn8_apply, fcn8_backbone, fcn8_logits, init_fcn8
 from iterative_inference_segm_tpu_torch.models.registry import init_score_template, score_kwargs, score_logits_fn
 from iterative_inference_segm_tpu_torch.ops import _build
@@ -246,6 +264,7 @@ from iterative_inference_segm_tpu_torch.ops import vpu_probe as vp
 from iterative_inference_segm_tpu_torch.ops.conv import conv2d, max_unpool
 from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail, refine_tail_reference
+from iterative_inference_segm_tpu_torch.ops.septail_step import septail_step, septail_step_reference
 from iterative_inference_segm_tpu_torch.scripts import demo_synthetic as demo
 from iterative_inference_segm_tpu_torch.scripts import iterative_inference as cli
 from iterative_inference_segm_tpu_torch.scripts import pack_dataset as pack_cli
@@ -254,6 +273,7 @@ from iterative_inference_segm_tpu_torch.scripts import train_fcn8 as fcn_cli
 from iterative_inference_segm_tpu_torch import entry as entry_point
 from iterative_inference_segm_tpu_torch.entry import flagship_params
 from iterative_inference_segm_tpu_torch.tools import bench as bench_tool
+from iterative_inference_segm_tpu_torch.tools import fused_bench as fused_tool
 from iterative_inference_segm_tpu_torch.tools import seed_replication, tail_bench
 from iterative_inference_segm_tpu_torch.tools import serve_bench as serve_tool
 from iterative_inference_segm_tpu_torch.tools import train_bench as train_tool
@@ -3036,6 +3056,275 @@ def run_space_phase(smi):
     return {"refine_tail": sum(o["k3"] for o in outs), "corrupt_onehot": sum(o["k1"] for o in outs)}
 
 
+
+# ---------------------------------------------------------------- phase 31: the phase-major fused engine
+FUSED_ARGV = ["--engine", "fused", "--dae-tail", "sep"]
+FUSED_CARRIES = ((), ("--state-dtype", "f32"))  # the bench twin's fused engine at a bf16 and an f32 carry
+FUSED_BENCH_ITERS = 3  # the fused_bench twin's chained block in this run (its default is 8)
+FUSED_CHECK_BATCH = 2  # the engine against the general engine on the card, f32
+# the gradient through one kernel step against the plain version's, per leaf, of its largest entry: both
+# backwards differentiate the plain version at the same inputs, so they differ in summation order only
+FUSED_GRAD_TOL = 1e-5
+FUSED_EDGE = (  # (name, batch, classes, Hh, Wh, s channel-leading, carry dtype, s dtype)
+    ("C=2", 2, 2, 45, 61, False, torch.float32, torch.float32),
+    ("C=2 bf16", 2, 2, 45, 61, True, torch.bfloat16, torch.bfloat16),
+    ("C=33", 1, 33, 20, 37, False, torch.float32, torch.bfloat16),
+    ("C=33 bf16", 1, 33, 20, 37, True, torch.bfloat16, torch.bfloat16),
+    ("2x2 map", 3, 11, 1, 1, False, torch.float32, torch.float32),
+    ("2x2 map bf16", 3, 11, 1, 1, True, torch.bfloat16, torch.bfloat16),
+    ("channel-leading s", 2, 11, 45, 61, True, torch.float32, torch.bfloat16),
+)
+
+
+def septail_ops(c: int) -> int:
+    """f32 operations a pixel and class of ``septail_step``, counted from
+    its code as K5's are (a multiply-add counts 2; expf and the IEEE divide
+    12 each, as in ``PATTERN_OPS``): the 4 deconv and 9 stencil taps, the C
+    multiply-adds of the mix and its bias, the softmax, the blend's
+    subtract and multiply-add."""
+    return 2 * (4 + 9) + 2 * c + 1 + (1 + 1 + 12 + 1 + 12) + 2
+
+
+def septail_bound(y_ph, s) -> dict:
+    """Bytes (y_ph and s read once, y_ph' written once) and operations of one
+    launch on these inputs, and the least time they take on the card."""
+    b, _, _, c, hh, wh = (int(d) for d in y_ph.shape)
+    nbytes = 2 * y_ph.numel() * y_ph.element_size() + s.numel() * s.element_size()
+    flops = 4 * b * hh * wh * c * septail_ops(c)
+    return {"bytes": nbytes, "flops": flops, **tail_bench.bound_ms(nbytes, flops)}
+
+
+def septail_inputs(dev, b, c, hh, wh, channel_leading, dtype, s_dtype, seed, s_stride=None):
+    """Seeded phase-major probabilities, a score map (B, Hh, Wh, C) in NHWC or
+    channel-leading memory (or at ``s_stride``), and the step's weights in
+    the JAX layouts, all on the card."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    y_ph = torch.softmax(torch.randn((b, 2, 2, c, hh, wh), device=dev, generator=gen) * 2, dim=3).to(dtype)
+    s = torch.randn((b, hh, wh, c), device=dev, generator=gen)
+    if s_stride is not None:
+        s = torch.empty_strided(s.shape, s_stride, device=dev).copy_(s)
+    elif channel_leading:
+        s = s.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    weights = [(torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
+               for shape in ((4, 4, c), (3, 3, c), (c, c), (c,))]
+    return y_ph, s.to(s_dtype), weights
+
+
+def check_septail(name, y_ph, s, w) -> tuple[float, float]:
+    """septail_step against septail_step_reference on the same card inputs:
+    max abs err within the tolerance; the class argmax the plain version's
+    but at near-ties (the plain value at the kernel's class within the
+    tolerance of the plain maximum), and agreeing on >= 99.9% of a map of
+    10^5 pixels or more (a smaller map holds one flip over 0.1%). Returns
+    (max abs err, argmax agreement)."""
+    got = septail_step(y_ph, s, *w, EPS)
+    if got.dtype != y_ph.dtype or not got.is_contiguous():
+        raise AssertionError(f"septail_step {name}: returned {got.dtype} {got.stride()}")
+    got, want = got.float(), septail_step_reference(y_ph, s, *w, EPS).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    arg = got.argmax(3, keepdim=True)
+    agree = (arg == want.argmax(3, keepdim=True)).float().mean().item()
+    tol = F32_TOL if y_ph.dtype == torch.float32 else BF16_TOL
+    ties_only = bool((want.gather(3, arg) >= want.amax(3, keepdim=True) - tol).all())
+    big = arg.numel() >= 10**5
+    if not err <= tol or not ties_only or (big and agree < MIN_ARGMAX_AGREE):
+        raise AssertionError(f"septail_step {name}: max abs err {err:.3e} (tol {tol:.1e}), argmax agree {agree:.6f}, "
+                             f"differing only at near-ties {ties_only}")
+    return err, agree
+
+
+def record_septail(fn) -> list[dict]:
+    """The shapes, strides and dtypes ``fn`` hands ``septail_step``."""
+    seen = []
+    real = fused_engine.septail_step
+
+    def recorder(y_ph, s, *rest):
+        seen.append({name: (tuple(t.shape), t.stride(), t.dtype) for name, t in (("y_ph", y_ph), ("s", s))})
+        return real(y_ph, s, *rest)
+
+    fused_engine.septail_step = recorder
+    try:
+        fn()
+    finally:
+        fused_engine.septail_step = real
+    return seen
+
+
+def perturbed_sep_tail(dae, seed):
+    """The 'sep' tail's leaves moved by 0.1 x N(0, 1): the bilinear, delta
+    and identity inits are symmetric and would hide a flip or a transpose."""
+    gen = torch.Generator().manual_seed(seed)
+    for layer in ("up_stem_dw", "score_input_dw", "mix"):
+        for leaf, t in dae[layer].items():
+            dae[layer][leaf] = t + 0.1 * torch.randn(t.shape, generator=gen).to(t.device)
+    return dae
+
+
+def run_fused_kernel_checks(dev, smi):
+    """septail_step against its plain version at the bench step (the layouts
+    the bench twin's pipeline hands it, batch 128) in bf16 and f32, timed warm
+    and cold against its bound; the edge cases; C = 129 refused; the
+    gradient through one kernel step against the plain version's."""
+    args = bench_tool.parse_args(FUSED_ARGV)
+    fcn, dae = bench_tool.init_params(args, dev)
+    x1 = torch.randn((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev)
+    worst, report = 0.0, {}
+    flush = tail_bench.flush_buffer(dev)
+    for carry, s_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
+        args.state_dtype = "bf16" if carry == torch.bfloat16 else "f32"
+        recs = record_septail(lambda: bench_tool.build_pipeline(args)(fcn, dae, x1))
+        (b1, _, _, c, hh, wh), s_stride, s_dt = recs[0]["y_ph"][0], recs[0]["s"][1], recs[0]["s"][2]
+        if len(recs) != K_STEPS or s_dt != s_dtype or recs[0]["y_ph"][2] != carry:
+            raise AssertionError(f"fused: the pipeline handed septail_step {recs}")
+        # at the bench twin's batch, s's strides as recorded (a dense map's batch stride is Hh Wh C)
+        stride = (hh * wh * c, *s_stride[1:])
+        y_ph, s, w = septail_inputs(dev, args.batch, c, hh, wh, False, carry, s_dtype, 0, s_stride=stride)
+        name = f"bench step {str(carry)[6:]} carry"
+        err, agree = check_septail(name, y_ph, s, w)
+        worst = max(worst, err)
+        kernel = lambda: septail_step(y_ph, s, *w, EPS)  # noqa: E731
+        warm, ahead_w = tail_bench.device_times(kernel)
+        cold, ahead_c = tail_bench.device_times(kernel, flush=flush)
+        plain, ahead_p = tail_bench.device_times(lambda: septail_step_reference(y_ph, s, *w, EPS), iters=3)
+        t = {"max_abs_err": err, "warm_ms": warm[0], "cold_ms": statistics.median(cold), "cold_min_ms": min(cold),
+             "cold_max_ms": max(cold), "plain_ms": plain[0], **septail_bound(y_ph, s)}
+        t["share"] = t["bound_ms"] / t["cold_ms"]
+        report[args.state_dtype] = t
+        phase("fused", f"septail_step, {name}: y_ph {tuple(y_ph.shape)} s {tuple(s.shape)} stride {s.stride()} "
+              f"{str(s_dtype)[6:]} (as the pipeline hands it at batch {b1}): max_abs_err={err:.3e} "
+              f"argmax_agree={agree:.6f}; warm {t['warm_ms']:.4f} ms, cold {t['cold_ms']:.4f} ms (launches "
+              f"{t['cold_min_ms']:.4f}..{t['cold_max_ms']:.4f}), plain {t['plain_ms']:.4f} ms; "
+              f"{t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.2f} G operations, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}), {t['share']:.1%} of it cold; host ahead {ahead_w and ahead_c and ahead_p}; "
+              f"{smi}; clocks.sm, max, power, temp: {clocks()}")
+        del y_ph, s, w, kernel
+        torch.cuda.empty_cache()
+    for i, (name, b, c, hh, wh, cl, dt, s_dt) in enumerate(FUSED_EDGE):
+        y_ph, s, w = septail_inputs(dev, b, c, hh, wh, cl, dt, s_dt, 10 + i)
+        err, agree = check_septail(name, y_ph, s, w)
+        worst = max(worst, err)
+        phase("fused", f"septail_step {name}: y_ph {tuple(y_ph.shape)} {str(dt)[6:]}, s stride {s.stride()} "
+              f"{str(s_dt)[6:]}: max_abs_err={err:.3e} argmax_agree={agree:.6f}")
+    y_ph, s, w = septail_inputs(dev, 1, WIDE_CLASSES[-1] + 1, 2, 3, False, torch.float32, torch.float32, 20)
+    before = septail_step.launches
+    try:
+        septail_step(y_ph, s, *w, EPS)
+    except ValueError as e:
+        phase("fused", f"C={WIDE_CLASSES[-1] + 1} on the card raises: {e}")
+    else:
+        raise AssertionError("septail_step took 129 classes on the card")
+    if septail_step.launches != before:
+        raise AssertionError("the refused call counted a launch")
+    # the gradient through one kernel step (the plain version's backward at the saved inputs) against the
+    # plain version's own, per leaf, of sum(m * y_ph'), at the bench step's shape at batch 1, f32
+    y_ph, s, w = septail_inputs(dev, 1, N_CLASSES, H // 2, W // 2, False, torch.float32, torch.float32, 21)
+    m = torch.randn(y_ph.shape, device=dev, generator=torch.Generator(dev).manual_seed(22))
+    grads = []
+    for step in (septail_step, septail_step_reference):
+        leaves = [t.clone().requires_grad_(True) for t in (y_ph, s, *w)]
+        (m * step(*leaves, EPS)).sum().backward()
+        grads.append([t.grad for t in leaves])
+    rel = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item() for a, b in zip(*grads)]
+    phase("fused", "gradient of sum(m * y_ph') through one kernel step against the plain version's, per leaf "
+          f"(y_ph, s, w_up, w_si, mix, bias), of its largest: {', '.join(f'{r:.2e}' for r in rel)} (limit "
+          f"{FUSED_GRAD_TOL})")
+    if not max(rel) <= FUSED_GRAD_TOL or min(g.abs().max().item() for g in grads[1]) == 0:
+        raise AssertionError(f"fused: the kernel step's gradient {rel}")
+    del fcn, dae
+    torch.cuda.empty_cache()
+    return worst, report
+
+
+def run_fused_main_path(dev, smi):
+    """As a user runs them: the bench twin's fused engine at batch 128, bf16
+    and f32 carry (septail_step K a forward, refine_tail none), then the
+    fused_bench twin's four variants; the engine against the general
+    engine with the 'sep' tail on the card in f32; make_fused_refiner card
+    against CPU. Returns (septail_step launches, refine_tail launches,
+    images/s by engine)."""
+    readings = {}
+    forwards = BENCH_WARMUP + 3 * BENCH_ITERS
+    for carry in FUSED_CARRIES:
+        before = septail_step.launches, refine_tail.launches
+        lines, secs = run_cli(bench_tool.main, ["--no-history", "--iters", BENCH_ITERS, *FUSED_ARGV, *carry])
+        rec = json.loads(lines[-1])
+        got = septail_step.launches - before[0], refine_tail.launches - before[1]
+        if got != (K_STEPS * forwards, 0) or rec["device"] != smi or not rec["value"] > 0:
+            raise AssertionError(f"fused bench {carry}: {lines[-1]}; septail_step, refine_tail launched {got}")
+        readings["bench fused " + (carry[-1] if carry else "bf16")] = rec["value"]
+        phase("fused", f"bench twin {' '.join(FUSED_ARGV + list(carry))}: {lines[-1]} (septail_step {got[0]} = "
+              f"{K_STEPS} x {forwards} forwards; {secs:.1f} s wall)")
+    before = septail_step.launches, refine_tail.launches
+    lines, secs = run_cli(fused_tool.main, ["--iters", FUSED_BENCH_ITERS])
+    forwards = 1 + 3 * FUSED_BENCH_ITERS
+    got = septail_step.launches - before[0], refine_tail.launches - before[1]
+    if got != (2 * K_STEPS * forwards, 2 * K_STEPS * forwards) or lines[0] != f"device: {smi}" or len(lines) != 5:
+        raise AssertionError(f"fused_bench: {lines}; septail_step, refine_tail launched {got}")
+    for line in lines[1:]:
+        readings[line.split(" (K=")[0]] = float(line.split("->")[1].split()[0])
+        phase("fused", f"fused_bench twin, batch 128: {line}")
+    phase("fused", f"fused_bench twin: septail_step {got[0]}, refine_tail {got[1]} = 2 x {K_STEPS} x {forwards} "
+          f"forwards each; {secs:.1f} s wall; {smi}")
+
+    # the engine against the general engine with the 'sep' tail, both on the card, f32, TF32 off
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = bench_tool.parse_args(FUSED_ARGV)
+    fcn, dae = bench_tool.init_params(args, dev)
+    dae = perturbed_sep_tail(dae, 3)
+    x = torch.randn((FUSED_CHECK_BATCH, H, W, 3), generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.inference_mode():
+        y0, h = fcn8_apply(fcn, x, return_features=("pool4",))
+        core_fn = lambda yp: dae_core(dae, yp, h, depth=3, stem_pool=1)  # noqa: E731
+        got = fused_engine.fused_refinement_scan(dae, core_fn, y0, eps=EPS, num_steps=K_STEPS)
+        want = refinement_scan(lambda y: dae_logits(dae, y, h, depth=3), y0, eps=EPS, num_steps=K_STEPS)
+    torch.cuda.synchronize()
+    d = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    moved = (want - y0).abs().max().item()
+    phase("fused", f"fused_refinement_scan against the general engine ('sep' tail), card, f32, batch "
+          f"{FUSED_CHECK_BATCH} at {H}x{W}, K={K_STEPS}: max|dy_K|={d:.3e} argmax agree={agree:.6f} (limits "
+          f"{PARITY_TOL}, {PARITY_MIN_ARGMAX_AGREE}); the steps moved y by {moved:.3e}")
+    if not (d <= PARITY_TOL and agree >= PARITY_MIN_ARGMAX_AGREE and moved > 1e-3):
+        raise AssertionError("fused: the engine against the general engine beyond its limits")
+    # make_fused_refiner on one image, card against CPU, f32
+    img = x[:1]
+    to_cpu = lambda p: {k: {kk: t.cpu() for kk, t in v.items()} for k, v in p.items()}  # noqa: E731
+    y0_g, yk_g = fused_engine.make_fused_refiner(fcn8_apply, fcn, dae, eps=EPS, num_steps=K_STEPS)(img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y0_c, yk_c = fused_engine.make_fused_refiner(fcn8_apply, to_cpu(fcn), to_cpu(dae), eps=EPS,
+                                                 num_steps=K_STEPS)(img.cpu())
+    cpu_s = time.perf_counter() - t0
+    d0, dk = (y0_g.cpu() - y0_c).abs().max().item(), (yk_g.cpu() - yk_c).abs().max().item()
+    agree = (yk_g.cpu().argmax(-1) == yk_c.argmax(-1)).float().mean().item()
+    phase("fused", f"make_fused_refiner, 1 image, f32, card vs CPU: max|dy0|={d0:.3e} max|dy_K|={dk:.3e} argmax "
+          f"agree={agree:.6f} (CPU run {cpu_s:.1f} s)")
+    if not (d0 <= PARITY_TOL and dk <= PARITY_TOL and agree >= PARITY_MIN_ARGMAX_AGREE):
+        raise AssertionError("fused: make_fused_refiner card vs CPU beyond tolerance")
+    del fcn, dae, x, y0, h, got, want
+    torch.cuda.empty_cache()
+    return readings
+
+
+def run_fused_phase(dev, smi):
+    """Phase 31: the kernel against its plain version (not counted), then
+    the main path with the counts set to 0 just before it and read just
+    after; septail_step must have launched."""
+    t_phase = time.perf_counter()
+    worst, report = run_fused_kernel_checks(dev, smi)
+    reset_counts()
+    septail_step.launches = 0
+    readings = run_fused_main_path(dev, smi)
+    launches = septail_step.launches
+    if launches == 0:
+        raise AssertionError("fused: septail_step never launched on the main path")
+    phase("fused", "batch 128 images/s: " + ", ".join(f"{k} {v:.1f}" for k, v in readings.items())
+          + f"; septail_step launches {launches}; phase 31 in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return worst, report, launches, refine_tail.launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs an NVIDIA GPU", file=sys.stderr)
@@ -3053,7 +3342,7 @@ def main() -> int:
 
     # one nvcc per source and g++ for the native input runtime, all started together
     t0 = time.perf_counter()
-    sources = ("refine_tail", "corruption", "vpu_probe")
+    sources = ("refine_tail", "corruption", "vpu_probe", "septail_step")
     with ThreadPoolExecutor(len(sources) + 1) as pool:
         host = pool.submit(_build.build_host, native_loader.NATIVE_SRC, "input_runtime")
         libs = dict(zip(sources, pool.map(_build.build, sources)))
@@ -3123,6 +3412,8 @@ def main() -> int:
     space = run_space_phase(smi)
     launches += space["refine_tail"]
     train_launches["corrupt_onehot"] += space["corrupt_onehot"]
+    septail_err, septail_report, septail_launches, fused_tail_launches = run_fused_phase(dev, smi)
+    launches += fused_tail_launches
 
     # No single PyTorch call computes any of the five functions, so each
     # library_ms is null. K3's entry is the half engine's step (bf16, the
@@ -3160,7 +3451,18 @@ def main() -> int:
             "ms": t["cold_ms"], "plain_ms": t["plain_cold_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
         })
-    phase("done", f"phases 1-30 in {time.perf_counter() - t_start:.1f} s wall, the build included")
+    # the phase-major engine's step: a hand-written kernel with no Pallas counterpart (it carries an XLA
+    # fusion of the JAX engine); its entry is the bench step's, bf16 carry, cold
+    t = septail_report["bf16"]
+    kernels.append({
+        "name": "septail_step", "route": "cuda",
+        "source": "iterative_inference_segm_tpu_torch/csrc/septail_step.cu",
+        "replaces": "iterative_inference_segm_tpu/inference/fused.py:98",
+        "launches": septail_launches, "max_abs_err": septail_err,
+        "ms": t["cold_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+    })
+    phase("done", f"phases 1-31 in {time.perf_counter() - t_start:.1f} s wall, the build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)

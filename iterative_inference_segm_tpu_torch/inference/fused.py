@@ -30,8 +30,18 @@ steps go through the kernel; energy steps differentiate ``0.5 * ||x -
 r(x)||^2`` through the denoiser with ``torch.autograd.grad`` in plain
 PyTorch and launch no kernel. Energy mode needs autograd, so it runs under
 ``torch.no_grad`` (it enables grad locally), never ``torch.inference_mode``.
-Folding stays score-mode and 'full'-tail only. The phase-major ``fused``
-engine is not ported (ROADMAP.md, "Not ported").
+Folding stays score-mode and 'full'-tail only.
+
+The phase-major ``fused`` engine (``fused_refinement_scan``,
+``make_fused_refiner``) runs every step at full resolution with the carry
+phase-major and channel-leading, ``y_ph (B, 2, 2, C, H/2, W/2)`` with
+``y_ph[b, ph, pw, c, j, u] = y[b, 2j+ph, 2u+pw, c]``. A step is the stem
+avg-pool (the mean over the four phase planes), the DAE core at half
+resolution, and ``ops.septail_step``: the 'sep' tail's k4/s2 depthwise
+deconv of the core's map, the depthwise 3x3 of the iterate, the 1x1 mix,
+the softmax and the blend, one pass of the hand-written kernel on a CUDA
+tensor. It takes score mode and a stem_pool=1 'sep'-tail DAE only, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -55,6 +65,12 @@ from iterative_inference_segm_tpu_torch.ops.conv import (
     crop_to,
 )
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail
+from iterative_inference_segm_tpu_torch.ops.septail_step import (  # noqa: F401 (the JAX module's names)
+    _DECONV_TAPS,
+    _shift2,
+    phase_logits,
+    septail_step,
+)
 
 
 def check_mode(mode: str) -> None:
@@ -466,17 +482,6 @@ def flagship_forward_fn(
     return forward
 
 
-def fused_refinement_scan(*args, **kwargs):
-    """The phase-major engine is a TPU lane-padding layout (ROADMAP.md, "Not
-    ported"); the half engine above is the port's throughput path."""
-    raise NotImplementedError("the phase-major 'fused' engine is not ported (ROADMAP.md)")
-
-
-def make_fused_refiner(*args, **kwargs):
-    """See ``fused_refinement_scan``."""
-    raise NotImplementedError("the phase-major 'fused' engine is not ported (ROADMAP.md)")
-
-
 def make_half_refiner(
     fcn_apply: Callable,
     fcn_params: dict,
@@ -506,5 +511,114 @@ def make_half_refiner(
     def refine(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         with no_autograd(mode):
             return forward(fcn_params, dae_params, x)
+
+    return refine
+
+
+def phase_split(y: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) -> (B, 2, 2, C, H/2, W/2), a view; [b, ph, pw, c, j, u] =
+    y[b, 2j+ph, 2u+pw, c]."""
+    b, h, w, c = y.shape
+    if h % 2 or w % 2:
+        raise ValueError(f"phase_split needs even H, W; got {(h, w)}")
+    return y.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 2, 4, 5, 1, 3)
+
+
+def phase_merge(y_ph: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``phase_split``."""
+    b, _, _, c, hh, wh = y_ph.shape
+    return y_ph.permute(0, 4, 1, 5, 2, 3).reshape(b, 2 * hh, 2 * wh, c)
+
+
+def septail_weights(params: dict):
+    """The 'sep' tail's weights in the JAX layouts ``septail_step`` takes:
+    ``(w_up (4, 4, C) unflipped, w_si (3, 3, C), mix (C_in, C_out), bias
+    (C,))``. The port keeps ``up_stem_dw`` flipped (C, 1, 4, 4),
+    ``score_input_dw`` (C, 1, 3, 3) and ``mix`` OIHW (``utils/jax_bridge``)."""
+    w_up = params["up_stem_dw"]["w"][:, 0].flip((1, 2)).permute(1, 2, 0)
+    w_si = params["score_input_dw"]["w"][:, 0].permute(1, 2, 0)
+    mix = params["mix"]["w"][:, :, 0, 0].t()
+    return w_up, w_si, mix, params["mix"]["b"]
+
+
+def septail_phase_logits(params: dict, s_cl: torch.Tensor, y_ph: torch.Tensor) -> torch.Tensor:
+    """Separable tail on phase planes: logits_ph (B, 2, 2, C, Hh, Wh) at
+    ``y_ph``'s dtype, in plain PyTorch. ``s_cl``: channel-leading half-res
+    score map (B, C, Hh, Wh) from ``dae_core``; ``y_ph``: the phase-split
+    iterate. Same math as models.dae.dae_septail_logits, re-laid-out."""
+    return phase_logits(s_cl, y_ph, *septail_weights(params))
+
+
+def _check_fused_dae(params: dict) -> None:
+    if dae_tail_of(params) != "sep" or dae_stem_pool_of(params) != 1:
+        raise ValueError("fused refiner requires a stem_pool=1, tail='sep' DAE")
+
+
+def fused_refinement_scan(
+    params: dict,
+    core_fn: Callable[[torch.Tensor], torch.Tensor],
+    y0: torch.Tensor,
+    *,
+    eps: float,
+    num_steps: int,
+    state_dtype=None,
+) -> torch.Tensor:
+    """K score-refinement steps with a phase-major carry; returns y_K (NHWC,
+    y0's dtype). ``core_fn(y_pool_nhwc) -> s_nhwc`` is the mid-res
+    encoder/decoder (``dae_core`` after the stem, closed over the params
+    and the conditioning). A step: the stem avg-pool as the mean over the
+    four phase planes (in f32 for a bf16 carry, then cast), the core, then
+    one ``septail_step`` (one kernel launch on a CUDA tensor: K a call).
+    The carry never leaves the phase-major layout between steps."""
+    _check_fused_dae(params)
+    if state_dtype is None:
+        state_dtype = y0.dtype
+    y_ph = phase_split(y0).to(state_dtype).contiguous()
+    weights = [t.to(state_dtype) for t in septail_weights(params)]
+    for _ in range(num_steps):
+        if state_dtype == torch.bfloat16:
+            y_pool = torch.mean(y_ph, dim=(1, 2), dtype=torch.float32).to(state_dtype)
+        else:
+            y_pool = torch.mean(y_ph, dim=(1, 2))
+        s = core_fn(y_pool.permute(0, 2, 3, 1).contiguous())  # NHWC half-res
+        # the kernel widens a bf16 map beside an f32 carry; any other dtype takes the carry's
+        if not (s.dtype == state_dtype or (s.dtype, state_dtype) == (torch.bfloat16, torch.float32)):
+            s = s.to(state_dtype)
+        y_ph = septail_step(y_ph, s, *weights, eps)
+    return phase_merge(y_ph).to(y0.dtype)
+
+
+def make_fused_refiner(
+    fcn_apply: Callable | None,
+    fcn_params: dict,
+    dae_params: dict,
+    *,
+    eps: float,
+    num_steps: int,
+    h_taps: tuple[str, ...] = ("pool4",),
+    depth: int = 3,
+    compute_dtype=torch.float32,
+    state_dtype=None,
+    encoder: str = "pool",
+) -> Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]:
+    """Image batch -> ``(y0, yK)`` through the phase-major engine, score
+    mode, for a stem_pool=1 'sep'-tail DAE; other configurations take the
+    general engine. The conditioning is recomputed inside the core at each
+    step, as in the JAX package (the bench twin hoists it)."""
+    _check_fused_dae(dae_params)
+    if fcn_apply is None:
+        from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply as fcn_apply
+
+    def refine(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        with torch.inference_mode():
+            y0, h = fcn_apply(fcn_params, x, return_features=h_taps, compute_dtype=compute_dtype)
+
+            def core_fn(y_pool_nhwc):
+                return dae_core(dae_params, y_pool_nhwc.to(compute_dtype), h, depth=depth, stem_pool=1,
+                                encoder=encoder)
+
+            y_k = fused_refinement_scan(dae_params, core_fn, y0, eps=eps, num_steps=num_steps,
+                                        state_dtype=state_dtype or compute_dtype)
+            return y0, y_k
 
     return refine

@@ -185,9 +185,31 @@ def _launch(u, y, eps, v, w, b, with_labels):
     return (out, labels) if with_labels else out
 
 
+def plain_version_grads(ctx, plain, grad_out) -> list:
+    """The backward of a kernel whose forward has no backward kernel: the
+    gradient of ``plain(*ctx.saved_tensors)`` (the kernel's plain version)
+    for the saved inputs that need one (None for the others and for absent
+    inputs). A recorded backward (``create_graph``) differentiates through
+    the saved inputs' own graphs."""
+    saved = ctx.saved_tensors
+    wanted = [i for i, t in enumerate(saved) if t is not None and ctx.needs_input_grad[i]]
+    grads = [None] * len(saved)
+    if not wanted or grad_out is None:
+        return grads
+    higher = torch.is_grad_enabled()  # the backward itself is being recorded
+    with torch.enable_grad():
+        inputs = list(saved) if higher else [
+            t.detach().requires_grad_(i in wanted) if t is not None else None for i, t in enumerate(saved)]
+        got = torch.autograd.grad(plain(*inputs), [inputs[i] for i in wanted], grad_out, allow_unused=True,
+                                  create_graph=higher)
+    for i, g in zip(wanted, got):
+        grads[i] = g
+    return grads
+
+
 class _KernelWithPlainBackward(torch.autograd.Function):
     """Forward: the kernel. Backward: the plain version's gradient at the
-    saved inputs (``create_graph`` when the backward itself is recorded)."""
+    saved inputs (``plain_version_grads``)."""
 
     @staticmethod
     def forward(ctx, u, y, v, w, b, eps, with_labels):
@@ -200,22 +222,8 @@ class _KernelWithPlainBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out, *_labels_grad):
-        saved = ctx.saved_tensors
-        wanted = [i for i, t in enumerate(saved) if t is not None and ctx.needs_input_grad[i]]
-        grads = [None] * 5
-        if not wanted or grad_out is None:
-            return (*grads, None, None)
-        higher = torch.is_grad_enabled()  # the backward itself is being recorded
-        with torch.enable_grad():
-            # a recorded backward differentiates through the saved inputs' own graphs
-            inputs = list(saved) if higher else [
-                t.detach().requires_grad_(i in wanted) if t is not None else None for i, t in enumerate(saved)]
-            u, y, v, w, b = inputs
-            out = refine_tail_reference(u, y, ctx.eps, v=v, w=w, b=b)
-            got = torch.autograd.grad(out, [inputs[i] for i in wanted], grad_out, allow_unused=True,
-                                      create_graph=higher)
-        for i, g in zip(wanted, got):
-            grads[i] = g
+        grads = plain_version_grads(
+            ctx, lambda u, y, v, w, b: refine_tail_reference(u, y, ctx.eps, v=v, w=w, b=b), grad_out)
         return (*grads, None, None)
 
 

@@ -15,12 +15,15 @@ caller asks for ``cpu``); the ``metric`` string is ``bench.py``'s letter for
 letter. ``vs_baseline`` is the ratio to the north-star target of 1000
 images/s per card, a target, not a measurement.
 
+``--engine fused --dae-tail sep`` runs the phase-major engine
+(``inference.fused.fused_refinement_scan``, its full-resolution step one
+``septail_step`` kernel launch) with the conditioning hoisted out of the
+steps, as ``bench.py``'s fused pipeline.
+
 By design (ROADMAP.md, Queue 3): no ``frontier`` key (``frontier.py`` is a
-table of TPU readings); ``--engine fused`` exits (the phase-major engine is
-a TPU lane-padding layout the port does not carry,
-``inference/fused.fused_refinement_scan`` raises); ``--check``'s floors are
-this card's own (below); the JSON lines go to
-``chiprun_out/bench_history_torch.jsonl``, never ``BENCH_HISTORY.jsonl``.
+table of TPU readings); ``--check``'s floors are this card's own (below);
+the JSON lines go to ``chiprun_out/bench_history_torch.jsonl``, never
+``BENCH_HISTORY.jsonl``.
 
 Timing: a chained block of ``--iters`` forwards between two CUDA events,
 the best of 3, after ``--warmup`` forwards that end in a synchronize
@@ -28,7 +31,7 @@ the best of 3, after ``--warmup`` forwards that end in a synchronize
 
 Usage (on the card):
     python -m iterative_inference_segm_tpu_torch.tools.bench [--batch N] [--steps K]
-        [--iters I] [--dtype bf16|f32] [--engine half|general] [--preset fast] [--check]
+        [--iters I] [--dtype bf16|f32] [--engine half|general|fused] [--preset fast] [--check]
 """
 
 from __future__ import annotations
@@ -76,7 +79,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mode", choices=["score", "energy"], default="score")
     p.add_argument("--engine", choices=["general", "half", "fused"], default="half",
                    help="'half' = the pooled engine (the flagship); 'general' = every step at full "
-                        "resolution; 'fused' is not ported (exits)")
+                        "resolution; 'fused' = the phase-major engine (needs --dae-tail sep "
+                        "--dae-stem-pool 1)")
     p.add_argument("--state-dtype", choices=["bf16", "f32", "compute"], default="compute",
                    help="refinement carry dtype ('compute' follows --dtype)")
     p.add_argument("--no-fold-tail", action="store_true",
@@ -105,11 +109,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.mode == "energy" and args.engine == "fused":
         raise SystemExit("--mode energy is not supported by the fused "
                          "phase-major experiment (score only)")
-    if args.engine == "fused":
-        raise SystemExit("--engine fused is not ported: the phase-major engine is a TPU lane-padding "
-                         "layout (ROADMAP.md, 'Not ported'); the port's stubs "
-                         "inference/fused.fused_refinement_scan and make_fused_refiner raise. "
-                         "Use --engine half or general")
+    if args.engine == "fused" and (args.dae_tail != "sep" or args.dae_stem_pool != 1):
+        raise SystemExit("--engine fused requires --dae-tail sep --dae-stem-pool 1")
     if args.engine == "half" and args.dae_stem_pool < 1:
         raise SystemExit("--engine half requires --dae-stem-pool >= 1 "
                          "(1 = half engine, 2 = quarter engine)")
@@ -150,10 +151,14 @@ def build_pipeline(args):
     params' device, for the configuration ``args`` (``parse_args``): the
     half engine's ``flagship_forward_fn`` (its rectification's labels are the
     argmax) or the general engine's ``refinement_scan`` over the score
-    network's logits, each in its no-autograd context."""
+    network's logits, each in its no-autograd context; or the phase-major
+    engine's ``fused_refinement_scan``, its conditioning hoisted by
+    ``precompute_bottleneck_h``."""
     from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn, no_autograd
 
     compute, state = dtypes(args)
+    if args.engine == "fused":
+        return _fused_pipeline(args, compute, state)
     if args.engine == "half":
         # the folded per-step tail is a score-mode algebra, so energy runs unfolded
         fold = args.dae_tail == "full" and not args.no_fold_tail and args.mode == "score"
@@ -186,6 +191,32 @@ def build_pipeline(args):
                                probs_dtype=state)
             y_k = refinement_scan(lambda y: score_logits(dae_params, y, h), y0.to(state), eps=0.1,
                                   num_steps=args.steps, mode=args.mode)
+            return torch.sum(torch.argmax(y_k, dim=-1))
+
+    return pipeline
+
+
+def _fused_pipeline(args, compute, state):
+    """``bench.py``'s fused pipeline: FCN-8, the bottleneck-scale taps
+    folded into a bias once, K phase-major steps, ``sum(argmax(y_K))``."""
+    from iterative_inference_segm_tpu_torch.inference.fused import fused_refinement_scan
+    from iterative_inference_segm_tpu_torch.models.dae import dae_core, precompute_bottleneck_h
+    from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
+
+    sp = args.dae_stem_pool
+
+    def pipeline(fcn_params, dae_params, x):
+        with torch.inference_mode():
+            y0, h = fcn8_apply(fcn_params, x, return_features=("pool4",), compute_dtype=compute,
+                               probs_dtype=state)
+            bh = precompute_bottleneck_h(dae_params, h, depth=args.dae_depth, stem_pool=sp,
+                                         in_hw=(x.shape[1] >> sp, x.shape[2] >> sp))
+
+            def core_fn(yp):
+                return dae_core(dae_params, yp.to(compute), bh[2], depth=args.dae_depth, stem_pool=sp,
+                                bottleneck_h=bh, encoder=args.dae_encoder)
+
+            y_k = fused_refinement_scan(dae_params, core_fn, y0, eps=0.1, num_steps=args.steps, state_dtype=state)
             return torch.sum(torch.argmax(y_k, dim=-1))
 
     return pipeline

@@ -6,8 +6,9 @@ JAX package's ``bench.py`` and ``__graft_entry__.entry()`` on the CPU.
   size (48x64, fc 16, DAE widths 8..64, batch 2, one iteration); the key set
   is JAX's less ``frontier`` (a table of TPU readings) plus ``device``.
 - ``build_pipeline``'s scalar ``sum(argmax(y_K))`` equals JAX's pipeline on
-  the same carried-over weights in f32 (half and general engines).
-- ``--engine fused`` exits; ``--check`` exits 1 under this card's floor;
+  the same carried-over weights in f32 (half, general and fused engines).
+- ``--engine fused`` runs with a 'sep' tail and is refused with a 'full'
+  one, in JAX's words; ``--check`` exits 1 under this card's floor;
   the history goes to the port's own file, and
   the JAX runs leave ``BENCH_HISTORY.jsonl`` and ``TRAIN_HISTORY.jsonl``
   byte for byte as they were.
@@ -34,6 +35,7 @@ from iterative_inference_segm_tpu.data.config_datasets import CAMVID as JCAMVID 
 from iterative_inference_segm_tpu.data.synthetic import synthetic_batches as j_synthetic  # noqa: E402
 from iterative_inference_segm_tpu.inference import iterative as jit_  # noqa: E402
 from iterative_inference_segm_tpu.inference.fused import flagship_forward_fn as j_flagship  # noqa: E402
+from iterative_inference_segm_tpu.inference.fused import fused_refinement_scan as j_fused_scan  # noqa: E402
 from iterative_inference_segm_tpu.models import dae as jdae  # noqa: E402
 from iterative_inference_segm_tpu.models import fcn8 as jfcn8  # noqa: E402
 from iterative_inference_segm_tpu_torch import entry as tentry  # noqa: E402
@@ -48,7 +50,8 @@ TINY = ["--no-history", "--height", "48", "--width", "64", "--fc-channels", "16"
         "--warmup", "1", "--dae-widths", "8", "16", "32", "64"]
 CONFIGS = {"default": [], "fast": ["--preset", "fast"], "steps0": ["--steps", "0"],
            "general_energy": ["--engine", "general", "--mode", "energy"],
-           "general_mirror": ["--engine", "general", "--arch", "mirror"]}
+           "general_mirror": ["--engine", "general", "--arch", "mirror"],
+           "fused": ["--engine", "fused", "--dae-tail", "sep"]}
 
 
 def jax_bench(argv):
@@ -114,7 +117,7 @@ def test_check_exits_1_under_this_cards_floor(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--engine", "fused"], "not ported"),
+    (["--engine", "fused"], "requires --dae-tail sep"),
     (["--engine", "fused", "--mode", "energy"], "not supported by the fused"),
     (["--arch", "mirror"], "requires --engine general"),
     (["--dae-stem-pool", "0"], "requires --dae-stem-pool >= 1"),
@@ -130,6 +133,17 @@ def jax_pipeline(engine, jf, jd, x):
         fwd = j_flagship(num_steps=5, depth=3, compute_dtype=jnp.float32, state_dtype=jnp.float32,
                          encoder="pool", mode="score", fold_tail=True)
         y0, yk = jax.jit(fwd)(jf, jd, x)
+    elif engine == "fused":
+        @jax.jit
+        def run(jf, jd, x):
+            y0, h = jfcn8.fcn8_apply(jf, x, return_features=("pool4",), compute_dtype=jnp.float32,
+                                     probs_dtype=jnp.float32)
+            bh = jdae.precompute_bottleneck_h(jd, h, depth=3, stem_pool=1, in_hw=(x.shape[1] >> 1, x.shape[2] >> 1))
+            core_fn = lambda yp: jdae.dae_core(jd, yp.astype(jnp.float32), bh[2], depth=3, stem_pool=1,  # noqa: E731
+                                               bottleneck_h=bh, encoder="pool")
+            return y0, j_fused_scan(jd, core_fn, y0, eps=0.1, num_steps=5, state_dtype=jnp.float32)
+
+        y0, yk = run(jf, jd, x)
     else:
         @jax.jit
         def run(jf, jd, x):
@@ -143,12 +157,13 @@ def jax_pipeline(engine, jf, jd, x):
     return int(jnp.sum(jnp.argmax(yk, axis=-1), dtype=jnp.int32)), np.asarray(yk)
 
 
-@pytest.mark.parametrize("engine", ["half", "general"])
+@pytest.mark.parametrize("engine", ["half", "general", "fused"])
 def test_build_pipeline_matches_jax_on_carried_over_weights(engine):
-    jf, jd = jax_params()
+    tail = "sep" if engine == "fused" else "full"
+    jf, jd = jax_params(tail=tail)
     ((images, _),) = j_synthetic(cfg=JCAMVID, batch_size=2, num_batches=1, height=48, width=64, seed=0)
     want, want_yk = jax_pipeline(engine, jf, jd, jnp.asarray(images))
-    args = tbench.parse_args(TINY + ["--dtype", "f32", "--engine", engine, "--device", "cpu"])
+    args = tbench.parse_args(TINY + ["--dtype", "f32", "--engine", engine, "--dae-tail", tail, "--device", "cpu"])
     pipeline = tbench.build_pipeline(args)
     got = pipeline(params_from_jax(jf), params_from_jax(jd), torch.from_numpy(images))
     assert got.dtype == torch.int64 and got.dim() == 0

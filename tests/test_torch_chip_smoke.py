@@ -8,7 +8,10 @@ a stand-in for the launcher: the launches they add up, and a spoiled
 result in any one rank failing the run; and the checks of the measuring
 entry points' phases (26-29) over stand-ins for the twins: the launches
 each configuration must make, and a wrong count, stamp or line failing;
-refine_tail held at the shapes each bench configuration hands it."""
+refine_tail held at the shapes each bench configuration hands it; and
+phase 31's: septail_step's bound, edge cases and check against its plain
+version (a spoiled kernel failing), the layouts recorded through the fused
+engine, and its main path's launches over stand-ins for the two twins."""
 
 import importlib
 import json
@@ -566,3 +569,122 @@ def test_space_phase_holds_the_ranks_to_one_process_and_the_contract(monkeypatch
     else:
         with pytest.raises(AssertionError, match="space"):
             chip_smoke.run_space_phase(SMI)
+
+
+def test_septail_bound_counts_each_byte_once_and_the_codes_operations():
+    """Phase 31's bound at the bench step: y_ph read and written once, s read
+    once (1.095 GB in bf16, 0.327 ms at 3.35 TB/s, bytes-bound over the
+    operations counted from the kernel's code)."""
+    assert chip_smoke.septail_ops(11) == 2 * 13 + 22 + 1 + 27 + 2
+    y_ph = torch.empty((128, 2, 2, 11, 180, 240), dtype=torch.bfloat16, device="meta")
+    s = torch.empty((128, 180, 240, 11), dtype=torch.bfloat16, device="meta")
+    b = chip_smoke.septail_bound(y_ph, s)
+    assert b["bytes"] == 2 * 243302400 * 2 + 60825600 * 2 == 1094860800
+    assert b["bound_by"] == "bytes" and abs(b["bound_ms"] - 1094860800 / 3.35e9) < 1e-9
+    assert b["flops"] == 4 * 128 * 180 * 240 * 11 * chip_smoke.septail_ops(11)
+
+
+def test_fused_edge_cases_reach_every_instance_and_edge():
+    cases = {c[0]: c for c in chip_smoke.FUSED_EDGE}
+    assert {c[2] for c in cases.values()} == {2, 11, 33}  # the 16-class, exact and wide instances
+    assert any(c[3] == c[4] == 1 for c in cases.values())  # a 2x2 frame: every tap on an edge
+    assert {c[5] for c in cases.values()} == {False, True}  # NHWC and channel-leading s
+    assert {c[6] for c in cases.values()} == {torch.float32, torch.bfloat16}
+
+
+@pytest.mark.parametrize("spoil", [None, "ulp", "dtype", "strides"])
+def test_check_septail_holds_the_kernel_to_its_plain_version(monkeypatch, spoil):
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    y_ph, s, w = chip_smoke.septail_inputs("cpu", 2, 11, 8, 12, True, torch.bfloat16, torch.bfloat16, 0)
+    assert not s.is_contiguous() and s.stride()[3] == 8 * 12  # channel-leading memory, NHWC shape
+    real = chip_smoke.septail_step
+
+    def spoiled(*args):
+        out = real(*args)
+        if spoil == "ulp":
+            out = out.clone()
+            out[1, 1, 0, 3, 4, 5] += 2.0**-6
+        elif spoil == "dtype":
+            out = out.float()
+        elif spoil == "strides":
+            out = out.transpose(-1, -2).contiguous().transpose(-1, -2)
+        return out
+
+    monkeypatch.setattr(chip_smoke, "septail_step", spoiled)
+    if spoil:
+        with pytest.raises(AssertionError, match="septail_step edge"):
+            chip_smoke.check_septail("edge", y_ph, s, w)
+        return
+    assert chip_smoke.check_septail("edge", y_ph, s, w) == (0.0, 1.0)
+
+
+def test_record_septail_sees_each_step_and_restores_the_engine():
+    from iterative_inference_segm_tpu_torch.inference import fused
+    from iterative_inference_segm_tpu_torch.models.dae import init_dae
+
+    dae = init_dae(torch.Generator().manual_seed(1), n_classes=5, h_specs={}, depth=2, stem_pool=1, tail="sep",
+                   widths=(8, 16))
+    y0 = torch.softmax(torch.randn((1, 16, 24, 5), generator=torch.Generator().manual_seed(2)), -1)
+    real = fused.septail_step
+    recs = chip_smoke.record_septail(lambda: fused.fused_refinement_scan(
+        dae, lambda yp: chip_smoke.dae_core(dae, yp, depth=2, stem_pool=1), y0, eps=0.1, num_steps=3))
+    assert fused.septail_step is real and len(recs) == 3
+    assert recs[0]["y_ph"][0] == (1, 2, 2, 5, 8, 12) and recs[0]["s"][0] == (1, 8, 12, 5)
+
+
+def _fake_fused_tools(spoil=None):
+    """Stand-ins for the bench twin's and the fused_bench twin's mains that
+    launch septail_step and refine_tail as their forwards would."""
+
+    def bench_main(argv):
+        args = chip_smoke.bench_tool.parse_args(argv)
+        chip_smoke.septail_step.launches += args.steps * (args.warmup + 3 * args.iters) + (spoil == "bench")
+        print(json.dumps({"metric": chip_smoke.bench_tool.metric(args), "value": 880.0, "unit": "images/sec/chip",
+                          "vs_baseline": 0.88, "device": SMI}))
+        return 0
+
+    def fused_main(argv):
+        args = chip_smoke.fused_tool.parse_args(argv)
+        n = 2 * args.steps * (1 + 3 * args.iters)
+        chip_smoke.septail_step.launches += n
+        chip_smoke.refine_tail.launches += n - (spoil == "fused_bench")
+        print(f"device: {SMI}")
+        for label in ("full tail, general engine", "sep tail, general engine", "sep tail, FUSED bf16 state",
+                      "sep tail, FUSED f32 state"):
+            print(f"{label + f' (K={args.steps})':<44s} {150.0:8.2f} ms/iter {1.17:7.4f} ms/img -> {853.3:7.1f} img/s")
+        return 0
+
+    return bench_main, fused_main
+
+
+@pytest.mark.parametrize("spoil", [None, "bench", "fused_bench"])
+def test_fused_main_path_counts_k_launches_a_forward(monkeypatch, capsys, spoil):
+    """Phase 31's main path over stand-ins for the two twins (at a tiny size
+    for its engine checks, which run for real): septail_step K a forward in
+    both, refine_tail K a forward of the general variants; a wrong count
+    fails the run."""
+    from iterative_inference_segm_tpu_torch.ops.septail_step import septail_step
+
+    bench_main, fused_main = _fake_fused_tools(spoil)
+    init = chip_smoke.bench_tool.init_params
+    monkeypatch.setattr(chip_smoke.bench_tool, "init_params", lambda args, dev: init(
+        type(args)(**{**vars(args), "fc_channels": 16, "dae_widths": [8, 16, 32]}), dev))
+    monkeypatch.setattr(chip_smoke.bench_tool, "main", bench_main)
+    monkeypatch.setattr(chip_smoke.fused_tool, "main", fused_main)
+    monkeypatch.setattr(chip_smoke, "H", 32)
+    monkeypatch.setattr(chip_smoke, "W", 32)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(septail_step, "launches", 0)
+    monkeypatch.setattr(chip_smoke.refine_tail, "launches", 0)
+    if spoil:
+        with pytest.raises(AssertionError, match="fused bench|fused_bench"):
+            chip_smoke.run_fused_main_path("cpu", SMI)
+        return
+    readings = chip_smoke.run_fused_main_path("cpu", SMI)
+    k = chip_smoke.K_STEPS
+    assert septail_step.launches == 2 * k * (chip_smoke.BENCH_WARMUP + 3 * chip_smoke.BENCH_ITERS) + 2 * k * (
+        1 + 3 * chip_smoke.FUSED_BENCH_ITERS)
+    assert readings["bench fused bf16"] == readings["bench fused f32"] == 880.0
+    assert readings["sep tail, FUSED f32 state"] == 853.3 and len(readings) == 6
+    out = capsys.readouterr().out
+    assert "make_fused_refiner, 1 image, f32, card vs CPU" in out and "against the general engine" in out

@@ -171,9 +171,14 @@ def test_engine_rejects_what_is_not_ported():
     # energy mode runs, unfolded: folding it is refused, as in the JAX package
     with pytest.raises(ValueError, match="fold_tail"):
         tfused.make_half_refiner(None, tf, td, eps=0.1, num_steps=1, mode="energy", fold_tail=True)
-    for fused_engine in (tfused.fused_refinement_scan, tfused.make_fused_refiner):
-        with pytest.raises(NotImplementedError):
-            fused_engine(td, None, torch.zeros((1, 48, 64, C)), eps=0.1, num_steps=1)
+    # the phase-major engine takes a stem_pool=1 'sep'-tail DAE only, as in the JAX package
+    with pytest.raises(ValueError, match="tail='sep' DAE"):
+        jfused.make_fused_refiner(jfcn8.fcn8_apply, jf, jd, eps=0.1, num_steps=1)
+    for fused_engine in (lambda: tfused.fused_refinement_scan(td, None, torch.zeros((1, 48, 64, C)), eps=0.1,
+                                                              num_steps=1),
+                         lambda: tfused.make_fused_refiner(None, tf, td, eps=0.1, num_steps=1)):
+        with pytest.raises(ValueError, match="tail='sep' DAE"):
+            fused_engine()
     with pytest.raises(ValueError):
         tfused.flagship_forward_fn(mode="langevin")
     y_odd = torch.zeros((1, 47, 64, C))
