@@ -208,14 +208,16 @@ Each rank counts its own kernel launches; the kernel report adds them.
                 (L2 flushed) against its bound, beside the plain version;
                 at C = 2 and 33, a 2x2 frame (every tap on an edge), NHWC
                 and channel-leading s; C = 129 raises; the gradient through
-                one kernel step against the plain version's, per leaf; then,
-                the counts set to 0: the bench twin --engine fused
-                --dae-tail sep at batch 128 with a bf16 and an f32 carry
-                (septail_step K a forward, refine_tail none), the
-                fused_bench twin's four variants (images/s), the engine
-                against the general engine with the 'sep' tail on the card
-                (f32, TF32 off, batch 2: 1e-4, argmax >= 99.9%), and
-                make_fused_refiner card against CPU on one image (f32)
+                one kernel step against the plain version's, per leaf; the
+                engine against the general engine with the 'sep' tail on
+                the card (f32, TF32 off, batch 2: 1e-4, argmax >= 99.9%),
+                make_fused_refiner card against CPU on one image (f32), and
+                one bench forward (bf16 carry, batch 128) under
+                torch.profiler (device time, idle share, septail_step's
+                share); then, the counts set to 0: the bench twin --engine
+                fused --dae-tail sep at batch 128 with a bf16 and an f32
+                carry (septail_step K a forward, refine_tail none) and the
+                fused_bench twin's four variants (images/s)
 Phases 4, 10, 12, 13, 16-20, 22, 24-27, 29 and 30 also assert that no refine_tail
 launch of theirs took the kernel's strided staging. Every phase asserts; any failure
 (in any rank) raises and the exit code is non-zero. The line before the last is the kernel
@@ -274,6 +276,7 @@ from iterative_inference_segm_tpu_torch import entry as entry_point
 from iterative_inference_segm_tpu_torch.entry import flagship_params
 from iterative_inference_segm_tpu_torch.tools import bench as bench_tool
 from iterative_inference_segm_tpu_torch.tools import fused_bench as fused_tool
+from iterative_inference_segm_tpu_torch.tools import profile_general as profile_tool
 from iterative_inference_segm_tpu_torch.tools import seed_replication, tail_bench
 from iterative_inference_segm_tpu_torch.tools import serve_bench as serve_tool
 from iterative_inference_segm_tpu_torch.tools import train_bench as train_tool
@@ -3065,14 +3068,15 @@ FUSED_CHECK_BATCH = 2  # the engine against the general engine on the card, f32
 # the gradient through one kernel step against the plain version's, per leaf, of its largest entry: both
 # backwards differentiate the plain version at the same inputs, so they differ in summation order only
 FUSED_GRAD_TOL = 1e-5
-FUSED_EDGE = (  # (name, batch, classes, Hh, Wh, s channel-leading, carry dtype, s dtype)
-    ("C=2", 2, 2, 45, 61, False, torch.float32, torch.float32),
-    ("C=2 bf16", 2, 2, 45, 61, True, torch.bfloat16, torch.bfloat16),
-    ("C=33", 1, 33, 20, 37, False, torch.float32, torch.bfloat16),
-    ("C=33 bf16", 1, 33, 20, 37, True, torch.bfloat16, torch.bfloat16),
-    ("2x2 map", 3, 11, 1, 1, False, torch.float32, torch.float32),
-    ("2x2 map bf16", 3, 11, 1, 1, True, torch.bfloat16, torch.bfloat16),
-    ("channel-leading s", 2, 11, 45, 61, True, torch.float32, torch.bfloat16),
+FUSED_PROFILE_ITERS = 2  # fused bench forwards under torch.profiler
+FUSED_EDGE = (  # (name, batch, classes, Hh, Wh, s channel-leading, dtype of y_ph and s)
+    ("C=2", 2, 2, 45, 61, False, torch.float32),
+    ("C=2 bf16", 2, 2, 45, 61, True, torch.bfloat16),
+    ("C=33", 1, 33, 20, 37, False, torch.float32),
+    ("C=33 bf16", 1, 33, 20, 37, True, torch.bfloat16),
+    ("2x2 map", 3, 11, 1, 1, False, torch.float32),
+    ("2x2 map bf16", 3, 11, 1, 1, True, torch.bfloat16),
+    ("channel-leading s", 2, 11, 45, 61, True, torch.float32),
 )
 
 
@@ -3094,7 +3098,7 @@ def septail_bound(y_ph, s) -> dict:
     return {"bytes": nbytes, "flops": flops, **tail_bench.bound_ms(nbytes, flops)}
 
 
-def septail_inputs(dev, b, c, hh, wh, channel_leading, dtype, s_dtype, seed, s_stride=None):
+def septail_inputs(dev, b, c, hh, wh, channel_leading, dtype, seed, s_stride=None):
     """Seeded phase-major probabilities, a score map (B, Hh, Wh, C) in NHWC or
     channel-leading memory (or at ``s_stride``), and the step's weights in
     the JAX layouts, all on the card."""
@@ -3107,7 +3111,7 @@ def septail_inputs(dev, b, c, hh, wh, channel_leading, dtype, s_dtype, seed, s_s
         s = s.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
     weights = [(torch.randn(shape, device=dev, generator=gen) * 0.5).to(dtype)
                for shape in ((4, 4, c), (3, 3, c), (c, c), (c,))]
-    return y_ph, s.to(s_dtype), weights
+    return y_ph, s.to(dtype), weights
 
 
 def check_septail(name, y_ph, s, w) -> tuple[float, float]:
@@ -3171,15 +3175,15 @@ def run_fused_kernel_checks(dev, smi):
     x1 = torch.randn((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev)
     worst, report = 0.0, {}
     flush = tail_bench.flush_buffer(dev)
-    for carry, s_dtype in ((torch.bfloat16, torch.bfloat16), (torch.float32, torch.bfloat16)):
+    for carry in (torch.bfloat16, torch.float32):
         args.state_dtype = "bf16" if carry == torch.bfloat16 else "f32"
         recs = record_septail(lambda: bench_tool.build_pipeline(args)(fcn, dae, x1))
         (b1, _, _, c, hh, wh), s_stride, s_dt = recs[0]["y_ph"][0], recs[0]["s"][1], recs[0]["s"][2]
-        if len(recs) != K_STEPS or s_dt != s_dtype or recs[0]["y_ph"][2] != carry:
+        if len(recs) != K_STEPS or s_dt != carry or recs[0]["y_ph"][2] != carry:
             raise AssertionError(f"fused: the pipeline handed septail_step {recs}")
         # at the bench twin's batch, s's strides as recorded (a dense map's batch stride is Hh Wh C)
         stride = (hh * wh * c, *s_stride[1:])
-        y_ph, s, w = septail_inputs(dev, args.batch, c, hh, wh, False, carry, s_dtype, 0, s_stride=stride)
+        y_ph, s, w = septail_inputs(dev, args.batch, c, hh, wh, False, carry, 0, s_stride=stride)
         name = f"bench step {str(carry)[6:]} carry"
         err, agree = check_septail(name, y_ph, s, w)
         worst = max(worst, err)
@@ -3192,7 +3196,7 @@ def run_fused_kernel_checks(dev, smi):
         t["share"] = t["bound_ms"] / t["cold_ms"]
         report[args.state_dtype] = t
         phase("fused", f"septail_step, {name}: y_ph {tuple(y_ph.shape)} s {tuple(s.shape)} stride {s.stride()} "
-              f"{str(s_dtype)[6:]} (as the pipeline hands it at batch {b1}): max_abs_err={err:.3e} "
+              f"(as the pipeline hands it at batch {b1}): max_abs_err={err:.3e} "
               f"argmax_agree={agree:.6f}; warm {t['warm_ms']:.4f} ms, cold {t['cold_ms']:.4f} ms (launches "
               f"{t['cold_min_ms']:.4f}..{t['cold_max_ms']:.4f}), plain {t['plain_ms']:.4f} ms; "
               f"{t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.2f} G operations, bound {t['bound_ms']:.4f} ms "
@@ -3200,13 +3204,13 @@ def run_fused_kernel_checks(dev, smi):
               f"{smi}; clocks.sm, max, power, temp: {clocks()}")
         del y_ph, s, w, kernel
         torch.cuda.empty_cache()
-    for i, (name, b, c, hh, wh, cl, dt, s_dt) in enumerate(FUSED_EDGE):
-        y_ph, s, w = septail_inputs(dev, b, c, hh, wh, cl, dt, s_dt, 10 + i)
+    for i, (name, b, c, hh, wh, cl, dt) in enumerate(FUSED_EDGE):
+        y_ph, s, w = septail_inputs(dev, b, c, hh, wh, cl, dt, 10 + i)
         err, agree = check_septail(name, y_ph, s, w)
         worst = max(worst, err)
-        phase("fused", f"septail_step {name}: y_ph {tuple(y_ph.shape)} {str(dt)[6:]}, s stride {s.stride()} "
-              f"{str(s_dt)[6:]}: max_abs_err={err:.3e} argmax_agree={agree:.6f}")
-    y_ph, s, w = septail_inputs(dev, 1, WIDE_CLASSES[-1] + 1, 2, 3, False, torch.float32, torch.float32, 20)
+        phase("fused", f"septail_step {name}: y_ph {tuple(y_ph.shape)} {str(dt)[6:]}, s stride {s.stride()}: "
+              f"max_abs_err={err:.3e} argmax_agree={agree:.6f}")
+    y_ph, s, w = septail_inputs(dev, 1, WIDE_CLASSES[-1] + 1, 2, 3, False, torch.float32, 20)
     before = septail_step.launches
     try:
         septail_step(y_ph, s, *w, EPS)
@@ -3218,7 +3222,7 @@ def run_fused_kernel_checks(dev, smi):
         raise AssertionError("the refused call counted a launch")
     # the gradient through one kernel step (the plain version's backward at the saved inputs) against the
     # plain version's own, per leaf, of sum(m * y_ph'), at the bench step's shape at batch 1, f32
-    y_ph, s, w = septail_inputs(dev, 1, N_CLASSES, H // 2, W // 2, False, torch.float32, torch.float32, 21)
+    y_ph, s, w = septail_inputs(dev, 1, N_CLASSES, H // 2, W // 2, False, torch.float32, 21)
     m = torch.randn(y_ph.shape, device=dev, generator=torch.Generator(dev).manual_seed(22))
     grads = []
     for step in (septail_step, septail_step_reference):
@@ -3236,13 +3240,75 @@ def run_fused_kernel_checks(dev, smi):
     return worst, report
 
 
-def run_fused_main_path(dev, smi):
+def run_fused_engine_checks(dev, smi):
+    """The engine against the general engine with the 'sep' tail on the
+    card in f32; make_fused_refiner card against CPU; one bench forward
+    (bf16 carry, batch 128) under torch.profiler: its device time, idle
+    share and septail_step's share. Not counted. Returns the profile."""
+    # the engine against the general engine with the 'sep' tail, both on the card, f32, TF32 off
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = bench_tool.parse_args(FUSED_ARGV)
+    fcn, dae = bench_tool.init_params(args, dev)
+    dae_p = perturbed_sep_tail({k: dict(v) for k, v in dae.items()}, 3)
+    x = torch.randn((FUSED_CHECK_BATCH, H, W, 3), generator=torch.Generator().manual_seed(4)).to(dev)
+    with torch.inference_mode():
+        y0, h = fcn8_apply(fcn, x, return_features=("pool4",))
+        core_fn = lambda yp: dae_core(dae_p, yp, h, depth=3, stem_pool=1)  # noqa: E731
+        got = fused_engine.fused_refinement_scan(dae_p, core_fn, y0, eps=EPS, num_steps=K_STEPS)
+        want = refinement_scan(lambda y: dae_logits(dae_p, y, h, depth=3), y0, eps=EPS, num_steps=K_STEPS)
+    torch.cuda.synchronize()
+    d = (got - want).abs().max().item()
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    moved = (want - y0).abs().max().item()
+    phase("fused", f"fused_refinement_scan against the general engine ('sep' tail), card, f32, batch "
+          f"{FUSED_CHECK_BATCH} at {H}x{W}, K={K_STEPS}: max|dy_K|={d:.3e} argmax agree={agree:.6f} (limits "
+          f"{PARITY_TOL}, {PARITY_MIN_ARGMAX_AGREE}); the steps moved y by {moved:.3e}")
+    if not (d <= PARITY_TOL and agree >= PARITY_MIN_ARGMAX_AGREE and moved > 1e-3):
+        raise AssertionError("fused: the engine against the general engine beyond its limits")
+    # make_fused_refiner on one image, card against CPU, f32
+    img = x[:1]
+    to_cpu = lambda p: {k: {kk: t.cpu() for kk, t in v.items()} for k, v in p.items()}  # noqa: E731
+    y0_g, yk_g = fused_engine.make_fused_refiner(fcn8_apply, fcn, dae_p, eps=EPS, num_steps=K_STEPS)(img)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y0_c, yk_c = fused_engine.make_fused_refiner(fcn8_apply, to_cpu(fcn), to_cpu(dae_p), eps=EPS,
+                                                 num_steps=K_STEPS)(img.cpu())
+    cpu_s = time.perf_counter() - t0
+    d0, dk = (y0_g.cpu() - y0_c).abs().max().item(), (yk_g.cpu() - yk_c).abs().max().item()
+    agree = (yk_g.cpu().argmax(-1) == yk_c.argmax(-1)).float().mean().item()
+    phase("fused", f"make_fused_refiner, 1 image, f32, card vs CPU: max|dy0|={d0:.3e} max|dy_K|={dk:.3e} argmax "
+          f"agree={agree:.6f} (CPU run {cpu_s:.1f} s)")
+    if not (d0 <= PARITY_TOL and dk <= PARITY_TOL and agree >= PARITY_MIN_ARGMAX_AGREE):
+        raise AssertionError("fused: make_fused_refiner card vs CPU beyond tolerance")
+    del x, y0, h, got, want, y0_g, yk_g
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    # one bench forward as the twin runs it (bf16 carry, batch 128, its synthetic images) under the profiler
+    pipeline = bench_tool.build_pipeline(args)
+    ((images, _),) = synthetic_batches(cfg=CAMVID, batch_size=args.batch, num_batches=1, height=H, width=W, seed=0)
+    xb = torch.from_numpy(images).to(dev)
+    prof = profile_tool.profile(lambda xx: pipeline(fcn, dae, xx), xb, iters=FUSED_PROFILE_ITERS,
+                                tail="septail_step_kernel")
+    step_ms = sum(ms for _, ms, _ in prof["tail"])
+    step_share = sum(share for _, _, share in prof["tail"])
+    phase("fused", f"bench forward --engine fused --dae-tail sep, batch {args.batch}, under torch.profiler "
+          f"({FUSED_PROFILE_ITERS} forwards): {prof['event_ms']:.3f} ms a forward by CUDA events, device time "
+          f"{prof['device_ms']:.3f} ms ({prof['idle']:.1%} idle), {prof['ops']:.0f} device operations; "
+          f"septail_step {step_ms:.3f} ms a forward ({step_share:.1%} of device time); {smi}")
+    for name, ms, share in prof["top"]:
+        phase("fused", f"   {ms:9.4f} ms {share:6.1%}  {name[:110]}")
+    if step_ms <= 0:
+        raise AssertionError("fused: the profiled forward traced no septail_step kernel")
+    del fcn, dae, dae_p, xb
+    torch.cuda.empty_cache()
+    return prof
+
+
+def run_fused_main_path(smi):
     """As a user runs them: the bench twin's fused engine at batch 128, bf16
     and f32 carry (septail_step K a forward, refine_tail none), then the
-    fused_bench twin's four variants; the engine against the general
-    engine with the 'sep' tail on the card in f32; make_fused_refiner card
-    against CPU. Returns (septail_step launches, refine_tail launches,
-    images/s by engine)."""
+    fused_bench twin's four variants. Returns images/s by engine."""
     readings = {}
     forwards = BENCH_WARMUP + 3 * BENCH_ITERS
     for carry in FUSED_CARRIES:
@@ -3266,63 +3332,25 @@ def run_fused_main_path(dev, smi):
         phase("fused", f"fused_bench twin, batch 128: {line}")
     phase("fused", f"fused_bench twin: septail_step {got[0]}, refine_tail {got[1]} = 2 x {K_STEPS} x {forwards} "
           f"forwards each; {secs:.1f} s wall; {smi}")
-
-    # the engine against the general engine with the 'sep' tail, both on the card, f32, TF32 off
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    args = bench_tool.parse_args(FUSED_ARGV)
-    fcn, dae = bench_tool.init_params(args, dev)
-    dae = perturbed_sep_tail(dae, 3)
-    x = torch.randn((FUSED_CHECK_BATCH, H, W, 3), generator=torch.Generator().manual_seed(4)).to(dev)
-    with torch.inference_mode():
-        y0, h = fcn8_apply(fcn, x, return_features=("pool4",))
-        core_fn = lambda yp: dae_core(dae, yp, h, depth=3, stem_pool=1)  # noqa: E731
-        got = fused_engine.fused_refinement_scan(dae, core_fn, y0, eps=EPS, num_steps=K_STEPS)
-        want = refinement_scan(lambda y: dae_logits(dae, y, h, depth=3), y0, eps=EPS, num_steps=K_STEPS)
-    torch.cuda.synchronize()
-    d = (got - want).abs().max().item()
-    agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    moved = (want - y0).abs().max().item()
-    phase("fused", f"fused_refinement_scan against the general engine ('sep' tail), card, f32, batch "
-          f"{FUSED_CHECK_BATCH} at {H}x{W}, K={K_STEPS}: max|dy_K|={d:.3e} argmax agree={agree:.6f} (limits "
-          f"{PARITY_TOL}, {PARITY_MIN_ARGMAX_AGREE}); the steps moved y by {moved:.3e}")
-    if not (d <= PARITY_TOL and agree >= PARITY_MIN_ARGMAX_AGREE and moved > 1e-3):
-        raise AssertionError("fused: the engine against the general engine beyond its limits")
-    # make_fused_refiner on one image, card against CPU, f32
-    img = x[:1]
-    to_cpu = lambda p: {k: {kk: t.cpu() for kk, t in v.items()} for k, v in p.items()}  # noqa: E731
-    y0_g, yk_g = fused_engine.make_fused_refiner(fcn8_apply, fcn, dae, eps=EPS, num_steps=K_STEPS)(img)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    y0_c, yk_c = fused_engine.make_fused_refiner(fcn8_apply, to_cpu(fcn), to_cpu(dae), eps=EPS,
-                                                 num_steps=K_STEPS)(img.cpu())
-    cpu_s = time.perf_counter() - t0
-    d0, dk = (y0_g.cpu() - y0_c).abs().max().item(), (yk_g.cpu() - yk_c).abs().max().item()
-    agree = (yk_g.cpu().argmax(-1) == yk_c.argmax(-1)).float().mean().item()
-    phase("fused", f"make_fused_refiner, 1 image, f32, card vs CPU: max|dy0|={d0:.3e} max|dy_K|={dk:.3e} argmax "
-          f"agree={agree:.6f} (CPU run {cpu_s:.1f} s)")
-    if not (d0 <= PARITY_TOL and dk <= PARITY_TOL and agree >= PARITY_MIN_ARGMAX_AGREE):
-        raise AssertionError("fused: make_fused_refiner card vs CPU beyond tolerance")
-    del fcn, dae, x, y0, h, got, want
-    torch.cuda.empty_cache()
     return readings
 
 
 def run_fused_phase(dev, smi):
-    """Phase 31: the kernel against its plain version (not counted), then
-    the main path with the counts set to 0 just before it and read just
-    after; septail_step must have launched."""
+    """Phase 31: the kernel against its plain version and the engine's
+    checks (not counted), then the main path with the counts set to 0 just
+    before it and read just after; septail_step must have launched."""
     t_phase = time.perf_counter()
     worst, report = run_fused_kernel_checks(dev, smi)
+    run_fused_engine_checks(dev, smi)
     reset_counts()
     septail_step.launches = 0
-    readings = run_fused_main_path(dev, smi)
-    launches = septail_step.launches
+    readings = run_fused_main_path(smi)
+    launches, tail_launches = septail_step.launches, refine_tail.launches
     if launches == 0:
         raise AssertionError("fused: septail_step never launched on the main path")
     phase("fused", "batch 128 images/s: " + ", ".join(f"{k} {v:.1f}" for k, v in readings.items())
           + f"; septail_step launches {launches}; phase 31 in {time.perf_counter() - t_phase:.1f} s; {smi}")
-    return worst, report, launches, refine_tail.launches
+    return worst, report, launches, tail_launches
 
 
 def main() -> int:

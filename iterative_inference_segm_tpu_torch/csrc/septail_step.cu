@@ -10,7 +10,7 @@
 // half-resolution score map, read as (B, Hh, Wh, C) through its own strides
 // (the NHWC map dae_core returns, or a channel-leading one seen through
 // NHWC strides: the transpose the JAX step writes out, :178, is never
-// materialized). Per full-resolution pixel (b, ph, pw, j, u) and class c:
+// materialized), in the carry's dtype. Per full-resolution pixel (b, ph, pw, j, u) and class c:
 //     a[c]  = sum of the 2x2 taps  w_up[kh, kw, c] * s[b, j + dh, u + dw, c]
 //                                                  (k4/s2 depthwise deconv)
 //           + sum of the 3x3 taps  w_si[1 + dr, 1 + dc, c] * y[b, 2j + ph + dr, 2u + pw + dc, c]
@@ -38,7 +38,7 @@
 // What bounds it: device-memory bytes. One launch reads y_ph and s and
 // writes y_ph' once; at the bench step (B = 128, C = 11, 360x480) that is
 // 243.3 M + 60.8 M values read and 243.3 M written: 1.095 GB in bf16,
-// ~0.33 ms at 3.35 TB/s (f32 carry beside a bf16 s: 2.07 GB, ~0.62 ms). A
+// ~0.33 ms at 3.35 TB/s (an f32 carry: 2.19 GB, ~0.65 ms). A
 // pixel does 13 C tap multiply-adds, C^2 mix multiply-adds and the softmax:
 // ~860 operations at C = 11, ~0.28 ms at 67 TFLOP/s f32, under the byte time.
 //
@@ -47,11 +47,12 @@
 // plane of y_ph (and every store of y_ph') is coalesced; the 9 y taps and 4
 // s taps a class are loaded straight from device memory, their reuse left to
 // L1 and L2; the weights (f32, 26 C + C^2 values) are read with __ldg at
-// addresses uniform across a warp. Up to 32 classes a pixel's values live in
-// registers (C = 11 unrolled exactly, else loops of 16 or 32 tested against
-// the run-time C); 33..128 take loops against the run-time C over arrays
-// the compiler keeps in local memory. Above 128 the launch is refused, the
-// cap of the repo's other kernels. Staging the halo in shared memory and
+// addresses uniform across a warp. Up to 16 classes a pixel's values live in
+// registers (C = 11, CamVid's, unrolled exactly; 2..16, the EM and polyp
+// sets' 2 among them, a loop of 16 tested against the run-time C); 17..128
+// take loops against the run-time C over arrays the compiler keeps in local
+// memory. Above 128 the launch is refused, the cap of the repo's other
+// kernels. Staging the halo in shared memory and
 // 16-byte accesses are left to a later change.
 //
 // Plain C interface (loaded with ctypes by ops/septail_step.py); the launch
@@ -64,7 +65,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRegClasses = 32;   // the most classes a pixel holds in registers
+constexpr int kRegClasses = 16;   // the most classes a pixel holds in registers
 constexpr int kMaxClasses = 128;  // the most any instance takes
 
 struct Params {
@@ -91,7 +92,7 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2
 // One thread a full-resolution pixel. kExact: C == CMAX, so the class loops
 // unroll with no test of c < C. Up to kRegClasses the trip counts are the
 // constant CMAX (unrolled, registers); above, the run-time C.
-template <typename T, typename TS, int CMAX, bool kExact>
+template <typename T, int CMAX, bool kExact>
 __global__ void __launch_bounds__(kThreads) septail_step_kernel(const Params p) {
   const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (t >= p.pixels) return;
@@ -106,7 +107,7 @@ __global__ void __launch_bounds__(kThreads) septail_step_kernel(const Params p) 
   const long long b = rest >> 2;
 
   const T* y = static_cast<const T*>(p.y) + b * p.y_b;
-  const TS* s = static_cast<const TS*>(p.s) + b * p.s_b;
+  const T* s = static_cast<const T*>(p.s) + b * p.s_b;
 
   // the 2x2 deconv taps: offset in s (-1 past an edge) and kernel index
   long long s_off[4];
@@ -192,32 +193,30 @@ __global__ void __launch_bounds__(kThreads) septail_step_kernel(const Params p) 
   }
 }
 
-template <typename T, typename TS, int CMAX, bool kExact = false>
+template <typename T, int CMAX, bool kExact = false>
 cudaError_t run(const Params& p, cudaStream_t stream) {
   const long long blocks = (p.pixels + kThreads - 1) / kThreads;
-  septail_step_kernel<T, TS, CMAX, kExact><<<(unsigned)blocks, kThreads, 0, stream>>>(p);
+  septail_step_kernel<T, CMAX, kExact><<<(unsigned)blocks, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, typename TS>
+template <typename T>
 cudaError_t run_c(const Params& p, cudaStream_t stream) {
   // CamVid's 11 classes unroll exactly; other counts run loops tested
   // against the run-time C
-  if (p.C == 11) return run<T, TS, 11, true>(p, stream);
-  if (p.C <= 16) return run<T, TS, 16>(p, stream);
-  if (p.C <= kRegClasses) return run<T, TS, 32>(p, stream);
-  return run<T, TS, kMaxClasses>(p, stream);
+  if (p.C == 11) return run<T, 11, true>(p, stream);
+  if (p.C <= kRegClasses) return run<T, kRegClasses>(p, stream);
+  return run<T, kMaxClasses>(p, stream);
 }
 
 }  // namespace
 
-// dtype (y_ph, out) and s_dtype: 0 = float32, 1 = bfloat16; s_dtype equals
-// dtype, or is 1 with dtype 0. y_ph's six and s's four strides are in
-// elements; the weights are contiguous float32 on the card; out is a
-// contiguous (B, 2, 2, C, Hh, Wh) tensor of y's dtype. 1 <= C <= 128 and
-// B * 4 * Hh * Wh < 2^31.
+// dtype (y_ph, s and out): 0 = float32, 1 = bfloat16. y_ph's six and s's
+// four strides are in elements; the weights are contiguous float32 on the
+// card; out is a contiguous (B, 2, 2, C, Hh, Wh) tensor of y's dtype.
+// 1 <= C <= 128 and B * 4 * Hh * Wh < 2^31.
 extern "C" int septail_step_launch(
-    int dtype, int s_dtype, int B, int C, int Hh, int Wh,
+    int dtype, int B, int C, int Hh, int Wh,
     const void* y, long long y_b, long long y_ph, long long y_pw, long long y_c, long long y_j, long long y_u,
     const void* s, long long s_b, long long s_h, long long s_w, long long s_c,
     const void* w_up, const void* w_si, const void* mix, const void* bias, float eps,
@@ -249,8 +248,7 @@ extern "C" int septail_step_launch(
   p.Wh = Wh;
   p.pixels = pixels;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && s_dtype == 0) return (int)run_c<float, float>(p, st);
-  if (dtype == 1 && s_dtype == 1) return (int)run_c<__nv_bfloat16, __nv_bfloat16>(p, st);
-  if (dtype == 0 && s_dtype == 1) return (int)run_c<float, __nv_bfloat16>(p, st);
+  if (dtype == 0) return (int)run_c<float>(p, st);
+  if (dtype == 1) return (int)run_c<__nv_bfloat16>(p, st);
   return (int)cudaErrorInvalidValue;
 }

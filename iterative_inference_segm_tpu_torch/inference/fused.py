@@ -580,10 +580,7 @@ def fused_refinement_scan(
             y_pool = torch.mean(y_ph, dim=(1, 2), dtype=torch.float32).to(state_dtype)
         else:
             y_pool = torch.mean(y_ph, dim=(1, 2))
-        s = core_fn(y_pool.permute(0, 2, 3, 1).contiguous())  # NHWC half-res
-        # the kernel widens a bf16 map beside an f32 carry; any other dtype takes the carry's
-        if not (s.dtype == state_dtype or (s.dtype, state_dtype) == (torch.bfloat16, torch.float32)):
-            s = s.to(state_dtype)
+        s = core_fn(y_pool.permute(0, 2, 3, 1).contiguous()).to(state_dtype)  # NHWC half-res
         y_ph = septail_step(y_ph, s, *weights, eps)
     return phase_merge(y_ph).to(y0.dtype)
 

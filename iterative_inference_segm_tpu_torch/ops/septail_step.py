@@ -29,8 +29,8 @@ transposed-conv kernel of ``up_stem_dw``, ``w_si`` (3, 3, C) of
 
 The plain version takes any class count; the kernel 1..128
 (``refine_tail.MAX_CLASSES``), a CUDA tensor of more raises naming the
-limit. ``s`` has ``y_ph``'s dtype, or is bfloat16 beside a float32 carry
-(the core's bf16 output, widened in registers instead of by a cast pass).
+limit. ``s`` has ``y_ph``'s dtype (``fused_refinement_scan`` casts the
+core's output to the carry's dtype, as the JAX step does).
 
 Gradients: on a CUDA tensor that takes part in autograd the forward is the
 kernel's launch and the backward differentiates ``septail_step_reference``
@@ -52,7 +52,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _ARGTYPES = (
-    [_I] * 6  # dtype (y_ph, out), s's dtype, B, C, Hh, Wh
+    [_I] * 5  # dtype (y_ph, s, out), B, C, Hh, Wh
     + [_P] + [_L] * 6  # y_ph, its strides
     + [_P] + [_L] * 4  # s, its strides as (B, Hh, Wh, C)
     + [_P] * 4 + [ctypes.c_float]  # w_up, w_si, mix, bias, eps
@@ -133,9 +133,8 @@ def _check(y_ph, s, w_up, w_si, mix, bias) -> None:
         raise ValueError(f"septail_step: empty map {tuple(y_ph.shape)}")
     if tuple(s.shape) != (bsz, hh, wh, c):
         raise ValueError(f"septail_step: s {tuple(s.shape)} must be (B, Hh, Wh, C) = {(bsz, hh, wh, c)}")
-    if not (s.dtype == y_ph.dtype or (s.dtype, y_ph.dtype) == (torch.bfloat16, torch.float32)):
-        raise TypeError(f"septail_step: s is {s.dtype}, y_ph is {y_ph.dtype} (s takes y_ph's dtype, or bf16 "
-                        "beside f32)")
+    if s.dtype != y_ph.dtype:
+        raise TypeError(f"septail_step: s is {s.dtype}, y_ph is {y_ph.dtype} (s takes y_ph's dtype)")
     for name, t, shape in (("w_up", w_up, (4, 4, c)), ("w_si", w_si, (3, 3, c)), ("mix", mix, (c, c)),
                            ("bias", bias, (c,))):
         if tuple(t.shape) != shape or not t.is_floating_point():
@@ -159,7 +158,7 @@ def _launch(y_ph, s, w_up, w_si, mix, bias, eps):
     with torch.cuda.device(y_ph.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
-            _DTYPE_CODE[y_ph.dtype], _DTYPE_CODE[s.dtype], bsz, c, hh, wh,
+            _DTYPE_CODE[y_ph.dtype], bsz, c, hh, wh,
             y_ph.data_ptr(), *y_ph.stride(), s.data_ptr(), *s.stride(),
             *(t.data_ptr() for t in weights), float(eps), out.data_ptr(), stream,
         )
@@ -187,7 +186,7 @@ class _KernelWithPlainBackward(torch.autograd.Function):
 def septail_step(y_ph, s, w_up, w_si, mix, bias, eps: float) -> torch.Tensor:
     """One step (see module doc). ``y_ph``: (B, 2, 2, C, Hh, Wh), any
     strides, float32 or bfloat16; ``s``: (B, Hh, Wh, C), any strides, in
-    y_ph's dtype or bfloat16 beside float32; weights in the JAX layouts.
+    y_ph's dtype; weights in the JAX layouts.
     Returns ``y_ph'`` (contiguous, y_ph's dtype)."""
     _check(y_ph, s, w_up, w_si, mix, bias)
     if y_ph.device.type == "cpu":

@@ -4,10 +4,10 @@ port of the repo's ``tools/fused_bench.py``).
 Variants, as the JAX tool's: the 'full'-tail general engine, the 'sep'-tail
 general engine, and the 'sep'-tail phase-major ``fused`` engine with a bf16
 and with an f32 carry. FCN-8 (fc 4096, C = 11) and a DAE of stem_pool 1,
-depth 3 from seeded random weights, bf16 compute, K = 5, eps = 0.1, batch
-128 at 360x480 by default; the FCN's probabilities in f32, and the fused
-variants recompute the conditioning inside the core at each step, as the
-JAX tool does. Each variant is timed by ``tools/timing.chained_ms``: the best
+depth 3 from seeded random weights, bf16 compute, K = 5, eps = 0.1, 360x480
+(fixed, as in the JAX tool), batch 128 by default; the FCN's probabilities
+in f32, and the fused variants recompute the conditioning inside the core at
+each step, as the JAX tool does. Each variant is timed by ``tools/timing.chained_ms``: the best
 of 3 chained blocks of ``--iters`` forwards between CUDA events, after a
 warm-up forward.
 
@@ -27,6 +27,9 @@ import torch
 
 from iterative_inference_segm_tpu_torch.tools.timing import chained_ms, device_stamp
 
+H, W, C = 360, 480, 11  # the JAX tool's bench configuration
+FC_CHANNELS = 4096
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -34,11 +37,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--steps", type=int, default=5)
     p.add_argument("--iters", type=int, default=8)
     p.add_argument("--depth", type=int, default=3)
-    p.add_argument("--height", type=int, default=360)
-    p.add_argument("--width", type=int, default=480)
-    p.add_argument("--fc-channels", type=int, default=4096)
-    p.add_argument("--dae-widths", nargs="*", type=int, default=None,
-                   help="encoder channel widths (default from models.dae)")
     p.add_argument("--device", default="cuda",
                    help="torch device ('cuda' needs a card; 'cpu' runs the plain versions)")
     return p.parse_args(argv)
@@ -52,12 +50,11 @@ def variants(args, device):
     from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_core, dae_logits, init_dae
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
 
-    c, cd, k = 11, torch.bfloat16, args.steps
-    fcn = init_fcn8(torch.Generator().manual_seed(0), n_classes=c, fc_channels=args.fc_channels, device=device)
-    kw = dict(n_classes=c, h_specs={"pool4": DAE_H_CHANNELS["pool4"]}, depth=args.depth, stem_pool=1,
-              device=device, **({"widths": tuple(args.dae_widths)} if args.dae_widths else {}))
+    cd, k = torch.bfloat16, args.steps
+    fcn = init_fcn8(torch.Generator().manual_seed(0), n_classes=C, fc_channels=FC_CHANNELS, device=device)
+    kw = dict(n_classes=C, h_specs={"pool4": DAE_H_CHANNELS["pool4"]}, depth=args.depth, stem_pool=1, device=device)
     dae = {tail: init_dae(torch.Generator().manual_seed(1), tail=tail, **kw) for tail in ("full", "sep")}
-    x = torch.randn((args.batch, args.height, args.width, 3), generator=torch.Generator().manual_seed(2)).to(device)
+    x = torch.randn((args.batch, H, W, 3), generator=torch.Generator().manual_seed(2)).to(device)
 
     def general(tail):
         def fn():

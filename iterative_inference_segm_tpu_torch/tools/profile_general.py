@@ -30,10 +30,11 @@ BATCH = 4
 K_STEPS = 5
 
 
-def summarize(ops: list[tuple[str, float]], iters: int, event_ms: float) -> dict:
+def summarize(ops: list[tuple[str, float]], iters: int, event_ms: float, tail: str = TAIL) -> dict:
     """``ops``: (name, device microseconds) of every traced device operation
     over ``iters`` forwards, each of ``event_ms`` by CUDA events. Returns
-    {'device_ms', 'idle', 'ops', 'top': [(name, ms per forward, share)]}."""
+    {'device_ms', 'idle', 'ops', 'top': [(name, ms per forward, share)],
+    'tail': the same for every operation whose name holds ``tail``}."""
     if not ops:
         raise RuntimeError("the profiler traced no device time; time with CUDA events instead")
     by_name: dict[str, float] = defaultdict(float)
@@ -47,13 +48,13 @@ def summarize(ops: list[tuple[str, float]], iters: int, event_ms: float) -> dict
         "idle": 1.0 - device_ms / event_ms,
         "ops": len(ops) / iters,
         "top": [(name, us / 1e3 / iters, us / total_us) for name, us in top],
-        "tail": [(name, us / 1e3 / iters, us / total_us) for name, us in by_name.items() if TAIL in name],
+        "tail": [(name, us / 1e3 / iters, us / total_us) for name, us in by_name.items() if tail in name],
     }
 
 
-def profile(refine, x, iters: int = ITERS) -> dict:
+def profile(refine, x, iters: int = ITERS, tail: str = TAIL) -> dict:
     """CUDA-event ms per forward, then the profiler's summary of ``iters``
-    forwards of ``refine(x)``."""
+    forwards of ``refine(x)`` (``summarize``, its kernel named ``tail``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -73,7 +74,7 @@ def profile(refine, x, iters: int = ITERS) -> dict:
             refine(x)
         torch.cuda.synchronize()
     ops = [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {"event_ms": event_ms, **summarize(ops, iters, event_ms)}
+    return {"event_ms": event_ms, **summarize(ops, iters, event_ms, tail)}
 
 
 def main() -> int:

@@ -595,7 +595,7 @@ def test_fused_edge_cases_reach_every_instance_and_edge():
 @pytest.mark.parametrize("spoil", [None, "ulp", "dtype", "strides"])
 def test_check_septail_holds_the_kernel_to_its_plain_version(monkeypatch, spoil):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    y_ph, s, w = chip_smoke.septail_inputs("cpu", 2, 11, 8, 12, True, torch.bfloat16, torch.bfloat16, 0)
+    y_ph, s, w = chip_smoke.septail_inputs("cpu", 2, 11, 8, 12, True, torch.bfloat16, 0)
     assert not s.is_contiguous() and s.stride()[3] == 8 * 12  # channel-leading memory, NHWC shape
     real = chip_smoke.septail_step
 
@@ -659,32 +659,60 @@ def _fake_fused_tools(spoil=None):
 
 @pytest.mark.parametrize("spoil", [None, "bench", "fused_bench"])
 def test_fused_main_path_counts_k_launches_a_forward(monkeypatch, capsys, spoil):
-    """Phase 31's main path over stand-ins for the two twins (at a tiny size
-    for its engine checks, which run for real): septail_step K a forward in
-    both, refine_tail K a forward of the general variants; a wrong count
-    fails the run."""
+    """Phase 31's main path over stand-ins for the two twins: septail_step K
+    a forward in both, refine_tail K a forward of the general variants; a
+    wrong count fails the run. Only the twins' forwards are counted."""
     from iterative_inference_segm_tpu_torch.ops.septail_step import septail_step
 
     bench_main, fused_main = _fake_fused_tools(spoil)
-    init = chip_smoke.bench_tool.init_params
-    monkeypatch.setattr(chip_smoke.bench_tool, "init_params", lambda args, dev: init(
-        type(args)(**{**vars(args), "fc_channels": 16, "dae_widths": [8, 16, 32]}), dev))
     monkeypatch.setattr(chip_smoke.bench_tool, "main", bench_main)
     monkeypatch.setattr(chip_smoke.fused_tool, "main", fused_main)
-    monkeypatch.setattr(chip_smoke, "H", 32)
-    monkeypatch.setattr(chip_smoke, "W", 32)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(septail_step, "launches", 0)
     monkeypatch.setattr(chip_smoke.refine_tail, "launches", 0)
     if spoil:
         with pytest.raises(AssertionError, match="fused bench|fused_bench"):
-            chip_smoke.run_fused_main_path("cpu", SMI)
+            chip_smoke.run_fused_main_path(SMI)
         return
-    readings = chip_smoke.run_fused_main_path("cpu", SMI)
+    readings = chip_smoke.run_fused_main_path(SMI)
     k = chip_smoke.K_STEPS
     assert septail_step.launches == 2 * k * (chip_smoke.BENCH_WARMUP + 3 * chip_smoke.BENCH_ITERS) + 2 * k * (
         1 + 3 * chip_smoke.FUSED_BENCH_ITERS)
+    assert chip_smoke.refine_tail.launches == 2 * k * (1 + 3 * chip_smoke.FUSED_BENCH_ITERS)
     assert readings["bench fused bf16"] == readings["bench fused f32"] == 880.0
     assert readings["sep tail, FUSED f32 state"] == 853.3 and len(readings) == 6
+
+
+@pytest.mark.parametrize("spoil", [None, "no_kernel"])
+def test_fused_engine_checks_run_outside_the_counted_window(monkeypatch, capsys, spoil):
+    """Phase 31's engine checks at a tiny size on the CPU (run for real): the
+    engine against the general engine, make_fused_refiner card against CPU,
+    then one bench forward under a stand-in for the profiler; a profile that
+    traced no septail_step kernel fails the run."""
+    from iterative_inference_segm_tpu_torch.tools import profile_general
+
+    parse = chip_smoke.bench_tool.parse_args
+    monkeypatch.setattr(chip_smoke.bench_tool, "parse_args", lambda argv: type(parse(argv))(
+        **{**vars(parse(argv)), "batch": 1, "fc_channels": 16, "dae_widths": [8, 16, 32]}))
+    monkeypatch.setattr(chip_smoke, "H", 32)
+    monkeypatch.setattr(chip_smoke, "W", 32)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    seen = []
+
+    def fake_profile(refine, x, iters, tail):
+        seen.append((tuple(x.shape), int(refine(x)), tail))
+        name = "other_kernel" if spoil else tail + "<bf16>"
+        return {"event_ms": 2.0, **profile_general.summarize([("conv", 600.0), (name, 200.0)], iters, 0.8, tail)}
+
+    monkeypatch.setattr(chip_smoke.profile_tool, "profile", fake_profile)
+    if spoil:
+        with pytest.raises(AssertionError, match="no septail_step kernel"):
+            chip_smoke.run_fused_engine_checks("cpu", SMI)
+        return
+    prof = chip_smoke.run_fused_engine_checks("cpu", SMI)
+    assert seen == [((1, 32, 32, 3), seen[0][1], "septail_step_kernel")]
+    assert prof["tail"] == [("septail_step_kernel<bf16>", pytest.approx(0.1), pytest.approx(0.25))]
     out = capsys.readouterr().out
     assert "make_fused_refiner, 1 image, f32, card vs CPU" in out and "against the general engine" in out
+    assert "septail_step 0.100 ms a forward (25.0% of device time)" in out

@@ -236,9 +236,11 @@ def test_septail_step_on_a_cpu_tensor_launches_no_kernel(dae):
     assert torch.equal(got, septail_step_reference(y_ph, s, *tfused.septail_weights(td), 0.1))
 
 
-def test_fused_bench_twin_runs_the_jax_tools_four_variants(capsys):
-    """``tools/fused_bench.py``'s twin at a tiny size on the CPU: the card
-    line, then one line a variant, labelled as the JAX tool labels them."""
+def test_fused_bench_twin_runs_the_jax_tools_four_variants(monkeypatch, capsys):
+    """``tools/fused_bench.py``'s twin on the CPU, its bench configuration
+    (the JAX tool's 360x480, fc 4096) cut to 32x32, fc 16 for the test: the
+    card line, then one line a variant, labelled as the JAX tool labels
+    them; the twin's options are the JAX tool's, with ``--device``."""
     import pathlib
     import re
 
@@ -247,9 +249,12 @@ def test_fused_bench_twin_runs_the_jax_tools_four_variants(capsys):
     src = (pathlib.Path(__file__).resolve().parents[1] / "tools" / "fused_bench.py").read_text()
     labels = [label.replace("{K}", "2") for label in re.findall(r'f"([^"]+\(K=\{K\}\))"', src)]
     assert len(labels) == 4
-    argv = ["--device", "cpu", "--batch", "1", "--steps", "2", "--iters", "1", "--height", "32", "--width", "32",
-            "--fc-channels", "16", "--dae-widths", "8", "16", "32"]
-    assert fused_bench.main(argv) == 0
+    assert set(vars(fused_bench.parse_args([]))) == set(re.findall(r'add_argument\("--(\w+)"', src)) | {"device"}
+    assert (fused_bench.H, fused_bench.W, fused_bench.C, fused_bench.FC_CHANNELS) == (360, 480, 11, 4096)
+    monkeypatch.setattr(fused_bench, "H", 32)
+    monkeypatch.setattr(fused_bench, "W", 32)
+    monkeypatch.setattr(fused_bench, "FC_CHANNELS", 16)
+    assert fused_bench.main(["--device", "cpu", "--batch", "1", "--steps", "2", "--iters", "1"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "device: cpu" and len(lines) == 5
     for label, line in zip(labels, lines[1:]):

@@ -30,13 +30,13 @@ from iterative_inference_segm_tpu_torch.ops.septail_step import (  # noqa: E402
 EPS = 0.1
 
 
-def _inputs(b=2, c=5, hh=4, wh=6, dtype=torch.float32, s_dtype=None, s_layout="nhwc", seed=0):
+def _inputs(b=2, c=5, hh=4, wh=6, dtype=torch.float32, s_layout="nhwc", seed=0):
     g = torch.Generator().manual_seed(seed)
     y_ph = torch.softmax(torch.randn((b, 2, 2, c, hh, wh), generator=g) * 2, dim=3).to(dtype)
     s = torch.randn((b, hh, wh, c), generator=g)
     if s_layout == "channel_leading":  # (B, C, Hh, Wh) memory seen through NHWC strides
         s = s.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    s = s.to(s_dtype or dtype)
+    s = s.to(dtype)
     weights = [torch.randn(shape, generator=g) * 0.5 for shape in ((4, 4, c), (3, 3, c), (c, c), (c,))]
     return y_ph, s, [w.to(dtype) for w in weights]
 
@@ -77,8 +77,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         y_ph = torch.cat([y_ph, y_ph], dim=1)
     elif case == "s_shape":
         s = s[:, :-1]
-    elif case == "s_dtype":  # a bf16 carry beside an f32 map: only the widening direction is taken
-        y_ph, w = y_ph.to(torch.bfloat16), [t.to(torch.bfloat16) for t in w]
+    elif case == "s_dtype":  # s takes the carry's dtype: a bf16 map beside an f32 carry is refused
+        s = s.to(torch.bfloat16)
     elif case == "w_up_shape":
         w[0] = w[0][:3]
     elif case == "mix_shape":
@@ -104,25 +104,25 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-# (batch, classes, Hh, Wh, s's layout, carry dtype, s's dtype): C = 11 takes
-# the exact instance, 2 and 16 the 16-class one, 17 and 32 the 32-class one,
-# 33 and 128 the wide one; a 1x1 half map (a 2x2 frame) puts every tap on an
-# edge; Wh = 37 is no multiple of a warp.
+# (batch, classes, Hh, Wh, s's layout, dtype): C = 11 takes the exact
+# instance, 2 and 16 the 16-class one, 17, 32, 33 and 128 the wide one; a
+# 1x1 half map (a 2x2 frame) puts every tap on an edge; Wh = 37 is no
+# multiple of a warp.
 CARD_CASES = [
-    (2, 11, 9, 12, "nhwc", "float32", "float32"), (2, 11, 9, 12, "nhwc", "bfloat16", "bfloat16"),
-    (2, 11, 9, 12, "channel_leading", "bfloat16", "bfloat16"), (2, 11, 9, 12, "nhwc", "float32", "bfloat16"),
-    (1, 2, 5, 37, "nhwc", "float32", "float32"), (1, 16, 5, 37, "channel_leading", "bfloat16", "bfloat16"),
-    (1, 17, 3, 8, "nhwc", "float32", "float32"), (1, 32, 3, 8, "nhwc", "bfloat16", "bfloat16"),
-    (1, 33, 3, 8, "nhwc", "float32", "float32"), (1, 33, 3, 8, "channel_leading", "bfloat16", "bfloat16"),
-    (1, 128, 2, 5, "nhwc", "float32", "bfloat16"), (3, 11, 1, 1, "nhwc", "float32", "float32"),
-    (3, 5, 1, 1, "channel_leading", "bfloat16", "bfloat16"),
+    (2, 11, 9, 12, "nhwc", "float32"), (2, 11, 9, 12, "nhwc", "bfloat16"),
+    (2, 11, 9, 12, "channel_leading", "bfloat16"), (2, 11, 9, 12, "channel_leading", "float32"),
+    (1, 2, 5, 37, "nhwc", "float32"), (1, 16, 5, 37, "channel_leading", "bfloat16"),
+    (1, 17, 3, 8, "nhwc", "float32"), (1, 32, 3, 8, "nhwc", "bfloat16"),
+    (1, 33, 3, 8, "nhwc", "float32"), (1, 33, 3, 8, "channel_leading", "bfloat16"),
+    (1, 128, 2, 5, "nhwc", "float32"), (3, 11, 1, 1, "nhwc", "float32"),
+    (3, 5, 1, 1, "channel_leading", "bfloat16"),
 ]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,hh,wh,layout,dtype,s_dtype", CARD_CASES)
-def test_kernel_matches_plain_version_on_card(cuda_device, b, c, hh, wh, layout, dtype, s_dtype):
-    y_ph, s, w = _inputs(b, c, hh, wh, getattr(torch, dtype), getattr(torch, s_dtype), layout, seed=c)
+@pytest.mark.parametrize("b,c,hh,wh,layout,dtype", CARD_CASES)
+def test_kernel_matches_plain_version_on_card(cuda_device, b, c, hh, wh, layout, dtype):
+    y_ph, s, w = _inputs(b, c, hh, wh, getattr(torch, dtype), layout, seed=c)
     before = septail_step.launches
     got = septail_step(y_ph.to(cuda_device), s.to(cuda_device), *(t.to(cuda_device) for t in w), EPS)
     torch.cuda.synchronize()
@@ -151,7 +151,7 @@ def test_kernel_under_autograd_carries_the_plain_versions_gradient(cuda_device):
     m = torch.randn(y_ph.shape, generator=torch.Generator().manual_seed(4))
     grads = {}
     for dev in ("cpu", cuda_device):
-        leaves = [t.to(dev).requires_grad_(True) for t in (y_ph, s, *w)]
+        leaves = [t.detach().to(dev).requires_grad_(True) for t in (y_ph, s, *w)]
         before = septail_step.launches
         (m.to(dev) * septail_step(*leaves, EPS)).sum().backward()
         assert septail_step.launches == before + (dev != "cpu")
