@@ -201,13 +201,19 @@ Each rank counts its own kernel launches; the kernel report adds them.
                 versions (phase 3's and phase 7's limits), outside the
                 counted runs; then python -m ...entry multichip 4 on the
                 card (4 ranks sharing it; its launches are not counted)
-31. fused    -- the phase-major engine: septail_step against its plain
+31. fused    -- the phase-major engine: septail_step's instances (ptxas
+                registers, spills, static shared memory, static SASS; each
+                launch's dynamic shared memory, blocks an SM, 16-byte
+                copies); the kernel against its plain
                 version at the bench step as the bench twin's pipeline hands
                 it (batch 128, C = 11, 360x480; bf16 carry within 2^-8 and
                 argmax >= 99.9%, f32 carry within 1e-5), timed warm and cold
                 (L2 flushed) against its bound, beside the plain version;
                 at C = 2 and 33, a 2x2 frame (every tap on an edge), NHWC
-                and channel-leading s; C = 129 raises; the gradient through
+                and channel-leading s, maps one position below and above a
+                multiple of the 12 x 16 tile and smaller than one, y_ph
+                staged by 16-byte copies and a value at a time (unaligned
+                bf16 rows); C = 129 raises; the gradient through
                 one kernel step against the plain version's, per leaf; the
                 engine against the general engine with the 'sep' tail on
                 the card (f32, TF32 off, batch 2: 1e-4, argmax >= 99.9%),
@@ -266,6 +272,7 @@ from iterative_inference_segm_tpu_torch.ops import vpu_probe as vp
 from iterative_inference_segm_tpu_torch.ops.conv import conv2d, max_unpool
 from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
 from iterative_inference_segm_tpu_torch.ops.refine_tail import refine_tail, refine_tail_reference
+from iterative_inference_segm_tpu_torch.ops.septail_step import kernel_plan as septail_plan
 from iterative_inference_segm_tpu_torch.ops.septail_step import septail_step, septail_step_reference
 from iterative_inference_segm_tpu_torch.scripts import demo_synthetic as demo
 from iterative_inference_segm_tpu_torch.scripts import iterative_inference as cli
@@ -469,9 +476,10 @@ def kernel_name(mangled: str) -> str:
     return f"{k.group(1)}<{k.group(2)}>" if k else mangled[:40]
 
 
-def ptxas_entries(log) -> dict[str, tuple[int, str]]:
-    """(registers, 'spill stores/loads') of each entry function of an ``nvcc
-    -Xptxas -v`` log, keyed by ``kernel_name``."""
+def ptxas_entries(log) -> dict[str, tuple[int, str, int]]:
+    """(registers, 'spill stores/loads', static shared bytes) of each entry
+    function of an ``nvcc -Xptxas -v`` log, keyed by ``kernel_name``
+    (dynamic shared memory is the launch's, not the compiler's)."""
     out, entry, spill = {}, "?", ""
     for line in log.read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -482,14 +490,15 @@ def ptxas_entries(log) -> dict[str, tuple[int, str]]:
             spill = f"spill {m.group(1)}/{m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m:
-            out[entry] = (int(m.group(1)), spill)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[entry] = (int(m.group(1)), spill, int(smem.group(1)) if smem else 0)
     return out
 
 
 def ptxas_summary(log) -> str:
     """'kernel<template args>: registers, spill stores/loads' per entry
     function of an ``nvcc -Xptxas -v`` log."""
-    return " | ".join(f"{k}: {r} regs, {s}" for k, (r, s) in ptxas_entries(log).items())
+    return " | ".join(f"{k}: {r} regs, {s}" for k, (r, s, _) in ptxas_entries(log).items())
 
 
 def sass_counts(lib) -> dict[str, dict[str, int]]:
@@ -3069,6 +3078,8 @@ FUSED_CHECK_BATCH = 2  # the engine against the general engine on the card, f32
 # backwards differentiate the plain version at the same inputs, so they differ in summation order only
 FUSED_GRAD_TOL = 1e-5
 FUSED_PROFILE_ITERS = 2  # fused bench forwards under torch.profiler
+# The tiled form's tile is 12 x 16 half-resolution positions; y_ph goes by 16-byte copies where its rows
+# are whole 16-byte units (Wh a multiple of 8 in bf16, of 4 in f32), else a value at a time.
 FUSED_EDGE = (  # (name, batch, classes, Hh, Wh, s channel-leading, dtype of y_ph and s)
     ("C=2", 2, 2, 45, 61, False, torch.float32),
     ("C=2 bf16", 2, 2, 45, 61, True, torch.bfloat16),
@@ -3077,6 +3088,15 @@ FUSED_EDGE = (  # (name, batch, classes, Hh, Wh, s channel-leading, dtype of y_p
     ("2x2 map", 3, 11, 1, 1, False, torch.float32),
     ("2x2 map bf16", 3, 11, 1, 1, True, torch.bfloat16),
     ("channel-leading s", 2, 11, 45, 61, True, torch.float32),
+    ("a tile multiple less 1, bf16 rows of 62 B", 2, 11, 23, 31, False, torch.bfloat16),
+    ("a tile multiple plus 1, bf16 rows of 66 B", 2, 11, 25, 33, True, torch.bfloat16),
+    ("a tile multiple plus 1, f32", 3, 11, 13, 17, True, torch.float32),
+    ("ragged tiles by 16-byte copies, bf16", 2, 11, 23, 40, True, torch.bfloat16),
+    ("ragged tiles by 16-byte copies, f32", 2, 11, 25, 36, False, torch.float32),
+    ("smaller than a tile, by 16-byte copies", 2, 11, 5, 8, False, torch.bfloat16),
+    ("smaller than a tile", 2, 11, 7, 9, True, torch.float32),
+    ("unaligned bf16 rows", 2, 11, 45, 61, False, torch.bfloat16),
+    ("C=2 by 16-byte copies", 2, 2, 13, 24, True, torch.bfloat16),
 )
 
 
@@ -3165,6 +3185,34 @@ def perturbed_sep_tail(dae, seed):
     return dae
 
 
+def septail_instances(dev, wh: int) -> dict:
+    """ptxas's registers, spills and static shared memory and the static
+    SASS instructions of each ``septail_step`` instance, and what a launch
+    of C = 11, 2 and 33 classes takes at the bench step's width
+    (``kernel_plan``: threads and dynamic shared bytes a block, resident
+    blocks an SM, 16-byte copies), keyed by (dtype, C); the C = 11 entries
+    also carry their instance's ptxas and SASS readings."""
+    lib = _build.build("septail_step")
+    entries, sass = ptxas_entries(lib.with_suffix(".log")), sass_counts(lib)
+    for name, (regs, spill, smem) in entries.items():
+        phase("fused", f"septail_step instance {name}: {regs} registers, {spill}, {smem} B static shared (ptxas); "
+              f"{sass.get(name, {}).get('instructions', '?')} static SASS instructions")
+    plans = {}
+    for dt, tag in ((torch.bfloat16, "13__nv_bfloat16"), (torch.float32, "f")):
+        for c in (N_CLASSES, 2, WIDE_CLASSES[0]):
+            plan = plans[(dt, c)] = septail_plan(dt, c, wh, dev)
+            phase("fused", f"septail_step launch, {str(dt)[6:]} C={c} Wh={wh}: {plan['form']} form, "
+                  f"{plan['threads']} threads and {plan['smem_bytes']} B dynamic shared a block, "
+                  f"{plan['blocks_per_sm']} blocks an SM, {plan['registers']} registers, y_ph by 16-byte copies "
+                  f"{plan['cp_async']}")
+        name = next((k for k in entries if k.startswith(f"septail_tile_kernel<{tag}Li{N_CLASSES}E")), None)
+        if name is None or plans[(dt, N_CLASSES)]["form"] != "tiled":
+            raise AssertionError(f"fused: no tiled C={N_CLASSES} instance of septail_step for {dt}: {list(entries)}")
+        plans[(dt, N_CLASSES)].update(instance=name, spill=entries[name][1], static_smem=entries[name][2],
+                                      sass_instructions=sass.get(name, {}).get("instructions"))
+    return plans
+
+
 def run_fused_kernel_checks(dev, smi):
     """septail_step against its plain version at the bench step (the layouts
     the bench twin's pipeline hands it, batch 128) in bf16 and f32, timed warm
@@ -3175,6 +3223,7 @@ def run_fused_kernel_checks(dev, smi):
     x1 = torch.randn((1, H, W, 3), generator=torch.Generator().manual_seed(2)).to(dev)
     worst, report = 0.0, {}
     flush = tail_bench.flush_buffer(dev)
+    plans = septail_instances(dev, W // 2)
     for carry in (torch.bfloat16, torch.float32):
         args.state_dtype = "bf16" if carry == torch.bfloat16 else "f32"
         recs = record_septail(lambda: bench_tool.build_pipeline(args)(fcn, dae, x1))
@@ -3192,7 +3241,7 @@ def run_fused_kernel_checks(dev, smi):
         cold, ahead_c = tail_bench.device_times(kernel, flush=flush)
         plain, ahead_p = tail_bench.device_times(lambda: septail_step_reference(y_ph, s, *w, EPS), iters=3)
         t = {"max_abs_err": err, "warm_ms": warm[0], "cold_ms": statistics.median(cold), "cold_min_ms": min(cold),
-             "cold_max_ms": max(cold), "plain_ms": plain[0], **septail_bound(y_ph, s)}
+             "cold_max_ms": max(cold), "plain_ms": plain[0], **septail_bound(y_ph, s), **plans[(carry, c)]}
         t["share"] = t["bound_ms"] / t["cold_ms"]
         report[args.state_dtype] = t
         phase("fused", f"septail_step, {name}: y_ph {tuple(y_ph.shape)} s {tuple(s.shape)} stride {s.stride()} "
@@ -3200,7 +3249,10 @@ def run_fused_kernel_checks(dev, smi):
               f"argmax_agree={agree:.6f}; warm {t['warm_ms']:.4f} ms, cold {t['cold_ms']:.4f} ms (launches "
               f"{t['cold_min_ms']:.4f}..{t['cold_max_ms']:.4f}), plain {t['plain_ms']:.4f} ms; "
               f"{t['bytes'] / 1e9:.3f} GB, {t['flops'] / 1e9:.2f} G operations, bound {t['bound_ms']:.4f} ms "
-              f"({t['bound_by']}), {t['share']:.1%} of it cold; host ahead {ahead_w and ahead_c and ahead_p}; "
+              f"({t['bound_by']}), {t['share']:.1%} of it cold; {t['instance']}: {t['registers']} registers, "
+              f"{t['spill']}, {t['sass_instructions']} static SASS instructions, {t['smem_bytes']} B dynamic shared a "
+              f"block, {t['blocks_per_sm']} blocks an SM, "
+              f"y_ph by 16-byte copies {t['cp_async']}; host ahead {ahead_w and ahead_c and ahead_p}; "
               f"{smi}; clocks.sm, max, power, temp: {clocks()}")
         del y_ph, s, w, kernel
         torch.cuda.empty_cache()
@@ -3289,7 +3341,7 @@ def run_fused_engine_checks(dev, smi):
     ((images, _),) = synthetic_batches(cfg=CAMVID, batch_size=args.batch, num_batches=1, height=H, width=W, seed=0)
     xb = torch.from_numpy(images).to(dev)
     prof = profile_tool.profile(lambda xx: pipeline(fcn, dae, xx), xb, iters=FUSED_PROFILE_ITERS,
-                                tail="septail_step_kernel")
+                                tail="septail_")  # either form: septail_tile_kernel, septail_step_kernel
     step_ms = sum(ms for _, ms, _ in prof["tail"])
     step_share = sum(share for _, _, share in prof["tail"])
     phase("fused", f"bench forward --engine fused --dae-tail sep, batch {args.batch}, under torch.profiler "

@@ -32,6 +32,23 @@ The plain version takes any class count; the kernel 1..128
 limit. ``s`` has ``y_ph``'s dtype (``fused_refinement_scan`` casts the
 core's output to the carry's dtype, as the JAX step does).
 
+The kernel's design (``csrc/septail_step.cu``'s header). Its bytes bound it
+at ~0.33 ms at the bench step (bf16), and the instructions it issues come
+close behind. For 1..16 classes it is tiled: a persistent block walks tiles
+of 12 x 16 half-resolution positions, staging each tile's one-position halo
+of ``y_ph`` (all four phase planes and classes) and of ``s`` in shared
+memory with 16-byte ``cp.async`` copies (a value at a time where the rows
+are not whole 16-byte units, or ``s`` is channel-leading), the next tile's
+copies landing while it computes the current one; a thread computes the
+four phases of one position from a 4x4 window of ``y`` and a 3x3 window of
+``s``, so that every staged value and weight serves several pixels. 17..128
+classes keep the first form (one thread a pixel, every tap loaded from
+device memory): no dataset of the repo has more than 11 classes. The
+wrapper hands the kernel a contiguous ``y_ph`` and ``s`` dense in NHWC or
+channel-leading memory (any other strides through ``.contiguous()``);
+``kernel_plan`` reports what a launch takes (threads, shared memory,
+resident blocks, registers, copies).
+
 Gradients: on a CUDA tensor that takes part in autograd the forward is the
 kernel's launch and the backward differentiates ``septail_step_reference``
 at the saved inputs in plain PyTorch, as ``refine_tail`` does.
@@ -146,12 +163,45 @@ def _check(y_ph, s, w_up, w_si, mix, bias) -> None:
         raise ValueError("septail_step: more than 2^31 pixels")
 
 
-def _launch(y_ph, s, w_up, w_si, mix, bias, eps):
+def _dense_strides(shape) -> tuple[int, ...]:
+    out, step = [], 1
+    for d in reversed(shape):
+        out.append(step)
+        step *= int(d)
+    return tuple(reversed(out))
+
+
+def _kernel_layouts(y_ph, s):
+    """``y_ph`` contiguous and ``s`` dense NHWC or dense channel-leading
+    (anything else copied to NHWC), with the strides of those layouts
+    (PyTorch's strides of a size-1 dimension are arbitrary; the kernel
+    checks the canonical ones)."""
+    y_ph = y_ph.contiguous()
+    bsz, hh, wh, c = (int(d) for d in s.shape)
+    if s.permute(0, 3, 1, 2).is_contiguous() and not s.is_contiguous():
+        return y_ph, _dense_strides(y_ph.shape), s, (c * hh * wh, wh, 1, hh * wh)
+    s = s.contiguous()
+    return y_ph, _dense_strides(y_ph.shape), s, _dense_strides(s.shape)
+
+
+def _lib():
     lib = _build.load("septail_step")
-    fn = lib.septail_step_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    if lib.septail_step_launch.argtypes is None:
+        lib.septail_step_launch.argtypes = _ARGTYPES
+        lib.septail_step_launch.restype = ctypes.c_int
+        lib.septail_step_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+        lib.septail_step_plan.restype = ctypes.c_int
+    return lib
+
+
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"septail_step: {what} failed with CUDA error {rc}")
+
+
+def _launch(y_ph, s, w_up, w_si, mix, bias, eps):
+    fn = _lib().septail_step_launch
+    y_ph, y_strides, s, s_strides = _kernel_layouts(y_ph, s)
     bsz, _, _, c, hh, wh = (int(d) for d in y_ph.shape)
     out = torch.empty(tuple(y_ph.shape), dtype=y_ph.dtype, device=y_ph.device)
     weights = [t.detach().to(torch.float32).contiguous() for t in (w_up, w_si, mix, bias)]
@@ -159,13 +209,27 @@ def _launch(y_ph, s, w_up, w_si, mix, bias, eps):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(
             _DTYPE_CODE[y_ph.dtype], bsz, c, hh, wh,
-            y_ph.data_ptr(), *y_ph.stride(), s.data_ptr(), *s.stride(),
+            y_ph.data_ptr(), *y_strides, s.data_ptr(), *s_strides,
             *(t.data_ptr() for t in weights), float(eps), out.data_ptr(), stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"septail_step: kernel launch failed with CUDA error {rc}")
+    _raise_on(rc, "kernel launch")
     septail_step.launches += 1
     return out
+
+
+def kernel_plan(dtype: torch.dtype, classes: int, wh: int, device=None) -> dict:
+    """What a launch of the kernel takes for ``classes`` classes of
+    ``dtype`` on a map ``wh`` half-resolution columns wide, launching
+    nothing: its form ('tiled' for 1..16 classes, else 'first'), threads and
+    dynamic shared bytes a block, resident blocks an SM, registers a thread,
+    and whether ``y_ph`` (16-byte aligned) is staged by 16-byte ``cp.async``
+    copies (else a value at a time)."""
+    check_kernel_classes("septail_step", classes)
+    plan = (_I * 6)()
+    with torch.cuda.device(device if device is not None else torch.cuda.current_device()):
+        _raise_on(_lib().septail_step_plan(_DTYPE_CODE[dtype], classes, wh, plan), "plan")
+    return {"form": "tiled" if plan[0] else "first", "threads": plan[1], "smem_bytes": plan[2],
+            "blocks_per_sm": plan[3], "registers": plan[4], "cp_async": bool(plan[5])}
 
 
 class _KernelWithPlainBackward(torch.autograd.Function):

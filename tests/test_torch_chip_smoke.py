@@ -46,8 +46,8 @@ def test_ptxas_entries_reads_registers_and_spills_per_instance(tmp_path):
         "ptxas info    : Used 32 registers, used 1 barriers, 5632 bytes smem\n"
     )
     assert chip_smoke.ptxas_entries(log) == {
-        "corrupt_kernel<Lb0ELi32ELb0>": (76, "spill 0/0 B"),
-        "corrupt_kernel<Lb1ELi11ELb1>": (32, "spill 20/24 B"),
+        "corrupt_kernel<Lb0ELi32ELb0>": (76, "spill 0/0 B", 16384),
+        "corrupt_kernel<Lb1ELi11ELb1>": (32, "spill 20/24 B", 5632),
     }
     assert chip_smoke.ptxas_summary(log) == (
         "corrupt_kernel<Lb0ELi32ELb0>: 76 regs, spill 0/0 B | corrupt_kernel<Lb1ELi11ELb1>: 32 regs, spill 20/24 B"
@@ -592,6 +592,71 @@ def test_fused_edge_cases_reach_every_instance_and_edge():
     assert {c[6] for c in cases.values()} == {torch.float32, torch.bfloat16}
 
 
+def test_fused_edge_cases_reach_the_tile_edges_and_both_stagings():
+    # the tiled form's 12 x 16 tile: Hh and Wh one below and one above a multiple of it, maps smaller
+    # than one tile, y_ph staged by 16-byte copies (whole 16-byte rows) and a value at a time, at batch > 1
+    tj, tu = 12, 16
+    tiled = [c for c in chip_smoke.FUSED_EDGE if c[2] <= 16 and c[1] > 1]
+    assert {c[3] % tj for c in tiled} >= {tj - 1, 1} and {c[4] % tu for c in tiled} >= {tu - 1, 1}
+    assert any(c[3] < tj and c[4] < tu and c[3] * c[4] > 1 for c in tiled)
+
+    def by_copies(c):
+        return c[4] * (2 if c[6] == torch.bfloat16 else 4) % 16 == 0
+
+    for dt in (torch.float32, torch.bfloat16):
+        assert {by_copies(c) for c in tiled if c[6] == dt} == {False, True}
+    assert {c[5] for c in tiled if by_copies(c)} == {False, True} == {c[5] for c in tiled if not by_copies(c)}
+    assert any(c[4] % tu and by_copies(c) for c in tiled)  # a ragged tile by 16-byte copies
+
+
+def _septail_log(tmp_path, bf16_exact=True):
+    mangled = {
+        "bf16": "_ZN12_GLOBAL__N_119septail_tile_kernelI13__nv_bfloat16Li11ELb1ELi2ELi3EEEvNS_10TileParamsE",
+        "f32": "_ZN12_GLOBAL__N_119septail_tile_kernelIfLi11ELb1ELi2ELi3EEEvNS_10TileParamsE",
+        "wide": "_ZN12_GLOBAL__N_119septail_step_kernelIfLi128ELb0EEEvNS_6ParamsE",
+    }
+    if not bf16_exact:
+        del mangled["bf16"]
+    lines = []
+    for i, name in enumerate(mangled.values()):
+        lines += [f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+                  f"    0 bytes stack frame, {4 * i} bytes spill stores, {4 * i} bytes spill loads",
+                  f"ptxas info    : Used {100 + i} registers, used 1 barriers, 400 bytes cmem[0]"]
+    lib = tmp_path / "libseptail_step-0.so"
+    lib.with_suffix(".log").write_text("\n".join(lines) + "\n")
+    return lib
+
+
+@pytest.mark.parametrize("bf16_exact", [True, False])
+def test_septail_instances_read_ptxas_and_each_launch_plan(monkeypatch, tmp_path, capsys, bf16_exact):
+    lib = _septail_log(tmp_path, bf16_exact)
+    monkeypatch.setattr(chip_smoke._build, "build", lambda name: lib)
+    monkeypatch.setattr(chip_smoke, "sass_counts", lambda lib: {
+        "septail_tile_kernel<fLi11ELb1ELi2ELi3>": {"instructions": 4096, "stg128": 0, "stg32": 44}})
+    asked = []
+
+    def plan(dt, c, wh, dev):
+        asked.append((dt, c, wh))
+        return {"form": "tiled" if c <= 16 else "first", "threads": 192, "smem_bytes": 1000 * c,
+                "blocks_per_sm": 3, "registers": 100, "cp_async": wh % 8 == 0}
+
+    monkeypatch.setattr(chip_smoke, "septail_plan", plan)
+    if not bf16_exact:
+        with pytest.raises(AssertionError, match="no tiled C=11 instance"):
+            chip_smoke.septail_instances("cpu", 240)
+        return
+    plans = chip_smoke.septail_instances("cpu", 240)
+    assert sorted(asked, key=str) == sorted(((dt, c, 240) for dt in (torch.bfloat16, torch.float32)
+                                             for c in (11, 2, 33)), key=str)
+    b, f = plans[(torch.bfloat16, 11)], plans[(torch.float32, 11)]
+    assert b["instance"].startswith("septail_tile_kernel<13__nv_bfloat16Li11") and b["spill"] == "spill 0/0 B"
+    assert f["instance"].startswith("septail_tile_kernel<fLi11") and f["spill"] == "spill 4/4 B"
+    assert b["static_smem"] == 0 and plans[(torch.float32, 33)]["form"] == "first"
+    assert f["sass_instructions"] == 4096 and b["sass_instructions"] is None
+    out = capsys.readouterr().out
+    assert "101 registers, spill 4/4 B, 0 B static shared (ptxas); 4096 static SASS instructions" in out
+
+
 @pytest.mark.parametrize("spoil", [None, "ulp", "dtype", "strides"])
 def test_check_septail_holds_the_kernel_to_its_plain_version(monkeypatch, spoil):
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -702,7 +767,7 @@ def test_fused_engine_checks_run_outside_the_counted_window(monkeypatch, capsys,
 
     def fake_profile(refine, x, iters, tail):
         seen.append((tuple(x.shape), int(refine(x)), tail))
-        name = "other_kernel" if spoil else tail + "<bf16>"
+        name = "other_kernel" if spoil else "septail_tile_kernel<bf16>"
         return {"event_ms": 2.0, **profile_general.summarize([("conv", 600.0), (name, 200.0)], iters, 0.8, tail)}
 
     monkeypatch.setattr(chip_smoke.profile_tool, "profile", fake_profile)
@@ -711,8 +776,8 @@ def test_fused_engine_checks_run_outside_the_counted_window(monkeypatch, capsys,
             chip_smoke.run_fused_engine_checks("cpu", SMI)
         return
     prof = chip_smoke.run_fused_engine_checks("cpu", SMI)
-    assert seen == [((1, 32, 32, 3), seen[0][1], "septail_step_kernel")]
-    assert prof["tail"] == [("septail_step_kernel<bf16>", pytest.approx(0.1), pytest.approx(0.25))]
+    assert seen == [((1, 32, 32, 3), seen[0][1], "septail_")]  # either form's kernel
+    assert prof["tail"] == [("septail_tile_kernel<bf16>", pytest.approx(0.1), pytest.approx(0.25))]
     out = capsys.readouterr().out
     assert "make_fused_refiner, 1 image, f32, card vs CPU" in out and "against the general engine" in out
     assert "septail_step 0.100 ms a forward (25.0% of device time)" in out

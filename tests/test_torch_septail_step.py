@@ -23,6 +23,8 @@ torch.set_num_threads(1)
 
 from iterative_inference_segm_tpu_torch.ops.refine_tail import MAX_CLASSES  # noqa: E402
 from iterative_inference_segm_tpu_torch.ops.septail_step import (  # noqa: E402
+    _kernel_layouts,
+    kernel_plan,
     septail_step,
     septail_step_reference,
 )
@@ -97,6 +99,40 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(case):
         septail_step(y_ph, s, *w, EPS)
 
 
+@pytest.mark.parametrize("layout", ["nhwc", "channel_leading", "strided", "size_one"])
+def test_kernel_layouts_are_dense_with_canonical_strides(layout):
+    # what the wrapper hands the kernel: y_ph contiguous, s dense NHWC or
+    # dense channel-leading (kept as it is), anything else copied to NHWC; the
+    # strides those layouts have, also along a dimension of size 1
+    hh, wh = (1, 1) if layout == "size_one" else (4, 6)
+    y_ph, s, _ = _inputs(b=2, c=5, hh=hh, wh=wh, s_layout="nhwc" if layout != "channel_leading" else layout)
+    if layout == "strided":
+        s = torch.empty((2, 4, 12, 5)).copy_(torch.cat([s, s], dim=2))[:, :, ::2]
+    y_ph = y_ph.transpose(4, 5).contiguous().transpose(4, 5)
+    y_k, y_strides, s_k, s_strides = _kernel_layouts(y_ph, s)
+    assert y_k.is_contiguous() and torch.equal(y_k, y_ph)
+    assert y_strides == (4 * 5 * hh * wh, 2 * 5 * hh * wh, 5 * hh * wh, hh * wh, wh, 1)
+    assert torch.equal(s_k, s)
+    if layout == "channel_leading":
+        assert s_k.data_ptr() == s.data_ptr() and s_strides == (5 * hh * wh, wh, 1, hh * wh) == s_k.stride()
+    else:
+        assert s_k.is_contiguous() and s_strides == (hh * wh * 5, wh * 5, 5, 1)
+
+
+def test_variant_edits_apply_once_to_the_kernel_source():
+    # tools/septail_variants.py times the kernel beside variants of its source, one edit each
+    from iterative_inference_segm_tpu_torch.ops import _build
+    from iterative_inference_segm_tpu_torch.tools import septail_variants as sv
+
+    srcs = sv.variant_sources()
+    assert list(srcs) == list(sv.EDITS)
+    assert srcs["ring"] == (_build.CSRC_DIR / "septail_step.cu").read_text()
+    for name, (old, new) in ((n, e) for n, e in sv.EDITS.items() if e is not None):
+        assert srcs[name] != srcs["ring"] and srcs[name].count(new) == 1, name
+    if not torch.cuda.is_available():
+        assert sv.main() == 1  # no card: no timing
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -105,9 +141,13 @@ def cuda_device():
 
 
 # (batch, classes, Hh, Wh, s's layout, dtype): C = 11 takes the exact
-# instance, 2 and 16 the 16-class one, 17, 32, 33 and 128 the wide one; a
-# 1x1 half map (a 2x2 frame) puts every tap on an edge; Wh = 37 is no
-# multiple of a warp.
+# tiled instance, 1, 2, 5 and 16 the 1..16 one, 17, 32, 33 and 128 the first
+# form; a 1x1 half map (a 2x2 frame) puts every tap on an edge; Wh = 37 is no
+# multiple of a warp. A tile is 12 x 16 half-resolution positions: Hh and Wh
+# one below and one above a multiple of it, maps smaller than one tile, and
+# y_ph staged by 16-byte copies (rows of whole 16-byte units: Wh a multiple
+# of 8 in bf16, of 4 in f32) and a value at a time (bf16 rows of 30, 34, 74
+# bytes), each with both layouts of s at batch > 1.
 CARD_CASES = [
     (2, 11, 9, 12, "nhwc", "float32"), (2, 11, 9, 12, "nhwc", "bfloat16"),
     (2, 11, 9, 12, "channel_leading", "bfloat16"), (2, 11, 9, 12, "channel_leading", "float32"),
@@ -116,6 +156,13 @@ CARD_CASES = [
     (1, 33, 3, 8, "nhwc", "float32"), (1, 33, 3, 8, "channel_leading", "bfloat16"),
     (1, 128, 2, 5, "nhwc", "float32"), (3, 11, 1, 1, "nhwc", "float32"),
     (3, 5, 1, 1, "channel_leading", "bfloat16"),
+    (2, 11, 11, 15, "nhwc", "bfloat16"), (2, 11, 13, 17, "channel_leading", "bfloat16"),
+    (2, 11, 23, 31, "channel_leading", "float32"), (3, 11, 25, 33, "nhwc", "float32"),
+    (2, 11, 13, 24, "nhwc", "bfloat16"), (2, 11, 11, 40, "channel_leading", "bfloat16"),
+    (2, 11, 25, 20, "channel_leading", "float32"), (2, 11, 23, 36, "nhwc", "float32"),
+    (2, 11, 3, 8, "nhwc", "bfloat16"), (2, 11, 5, 7, "channel_leading", "float32"),
+    (2, 11, 4, 37, "nhwc", "bfloat16"), (2, 2, 13, 24, "channel_leading", "bfloat16"),
+    (2, 16, 11, 12, "nhwc", "float32"), (2, 1, 7, 9, "nhwc", "float32"),
 ]
 
 
@@ -134,6 +181,20 @@ def test_kernel_matches_plain_version_on_card(cuda_device, b, c, hh, wh, layout,
     assert (got - want).abs().max() <= tol
     # the kernel's argmax is the plain version's, but at near-ties: its class is within tol of the plain max
     assert (want.gather(3, got.argmax(3, keepdim=True)) >= want.amax(3, keepdim=True) - tol).all()
+
+
+@pytest.mark.cuda
+def test_kernel_plan_on_card(cuda_device):
+    # the bench step's instance: tiled, y_ph by 16-byte copies at Wh = 240, two
+    # blocks an SM in bf16 (two stages of ~46 KB each), one in f32 (~70 KB
+    # each); an unaligned bf16 row a value at a time; 33 classes the first form
+    for dtype, blocks in ((torch.bfloat16, 2), (torch.float32, 1)):
+        plan = kernel_plan(dtype, 11, 240)
+        assert plan["form"] == "tiled" and plan["cp_async"] and plan["blocks_per_sm"] >= blocks
+        assert 0 < plan["smem_bytes"] <= 227 * 1024 and plan["registers"] > 0
+    assert not kernel_plan(torch.bfloat16, 11, 37)["cp_async"]
+    assert kernel_plan(torch.float32, 2, 240)["form"] == "tiled"
+    assert kernel_plan(torch.float32, 33, 240)["form"] == "first"
 
 
 @pytest.mark.cuda
