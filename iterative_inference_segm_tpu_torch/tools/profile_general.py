@@ -6,7 +6,8 @@ bf16. Weights are random from a seed.
 For each mode (score, energy) it prints the CUDA-event time per forward
 over ITERS calls, then runs ITERS calls under ``torch.profiler`` and prints
 the device time per forward (the sum of the traced device operations), the
-idle share (1 - device time / event time), the device operations per
+busy time (the union of their intervals) and the idle share (1 - busy
+time / event time), the device operations per
 forward, the TOP operations by device time with their shares, and the
 refinement-tail kernel's own line. It
 raises if the profiler traced no device time.
@@ -52,9 +53,38 @@ def summarize(ops: list[tuple[str, float]], iters: int, event_ms: float, tail: s
     }
 
 
-def profile(refine, x, iters: int = ITERS, tail: str = TAIL) -> dict:
+def busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: the time the
+    device ran at least one operation (operations on concurrent streams
+    overlap, and their durations then sum past it)."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def conv_device_ms(events, weight_shape, iters: int) -> float:
+    """Device ms per forward of the convolutions whose weight has
+    ``weight_shape``: the ``aten::conv2d`` events of a trace taken with
+    ``record_shapes`` that hold it among their inputs, each with the device
+    time of every kernel it launched (its bias add included)."""
+    want = list(weight_shape)
+    us = 0.0
+    for e in events:
+        if e.name == "aten::conv2d" and any(list(s) == want for s in (e.input_shapes or ())):
+            us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+    return us / 1e3 / iters
+
+
+def profile(refine, x, iters: int = ITERS, tail: str = TAIL, weights=()) -> dict:
     """CUDA-event ms per forward, then the profiler's summary of ``iters``
-    forwards of ``refine(x)`` (``summarize``, its kernel named ``tail``)."""
+    forwards of ``refine(x)`` (``summarize``, its kernel named ``tail``),
+    ``busy_ms`` the union of the device operations' intervals a forward and
+    ``idle`` 1 - busy / event ms; for each weight shape in ``weights``,
+    ``by_weight[shape]`` = (device ms per forward of its convolutions,
+    share of the summed device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -69,12 +99,21 @@ def profile(refine, x, iters: int = ITERS, tail: str = TAIL) -> dict:
     end.record()
     torch.cuda.synchronize()
     event_ms = start.elapsed_time(end) / iters
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=bool(weights)) as prof:
         for _ in range(iters):
             refine(x)
         torch.cuda.synchronize()
-    ops = [(e.name, e.time_range.elapsed_us()) for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return {"event_ms": event_ms, **summarize(ops, iters, event_ms, tail)}
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    out = {"event_ms": event_ms, **summarize([(e.name, e.time_range.elapsed_us()) for e in device], iters, event_ms,
+                                             tail)}
+    out["busy_ms"] = busy_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / iters
+    out["idle"] = 1.0 - out["busy_ms"] / event_ms
+    out["by_weight"] = {}
+    for shape in weights:
+        ms = conv_device_ms(events, shape, iters)
+        out["by_weight"][tuple(shape)] = (ms, ms / out["device_ms"])
+    return out
 
 
 def main() -> int:
@@ -98,8 +137,9 @@ def main() -> int:
                               mode="score" if steps == 0 else mode, compute_dtype=torch.bfloat16,
                               dae_kwargs={"depth": 4})
         r = profile(refine, x)
-        print(f"{mode}: {r['event_ms']:.3f} ms a forward by CUDA events; device time {r['device_ms']:.3f} ms "
-              f"({r['idle']:.1%} idle); {r['ops']:.0f} device operations a forward", flush=True)
+        print(f"{mode}: {r['event_ms']:.3f} ms a forward by CUDA events; device time {r['device_ms']:.3f} ms, "
+              f"busy {r['busy_ms']:.3f} ms ({r['idle']:.1%} idle); {r['ops']:.0f} device operations a forward",
+              flush=True)
         for name, ms, share in r["top"]:
             print(f"   {ms:8.4f} ms {share:6.1%}  {name[:110]}", flush=True)
         for name, ms, share in r["tail"]:

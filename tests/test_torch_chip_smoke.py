@@ -781,3 +781,172 @@ def test_fused_engine_checks_run_outside_the_counted_window(monkeypatch, capsys,
     out = capsys.readouterr().out
     assert "make_fused_refiner, 1 image, f32, card vs CPU" in out and "against the general engine" in out
     assert "septail_step 0.100 ms a forward (25.0% of device time)" in out
+
+
+def _probe_line(name, **kw):
+    rec = {"probe": name, "label": "row", "ms": 2.0, "ms_per_img": 1.0, "batch": 2, "value": 3.0, "device": SMI}
+    rec.update(kw)
+    return json.dumps(rec)
+
+
+@pytest.mark.parametrize("spoil", [None, "probe", "device", "ms", "value", "per_img", "check", "derived"])
+def test_check_probe_lines_takes_only_stamped_finite_rows(spoil):
+    """Phase 32's check of a twin's lines: each its probe's and stamped with
+    the card; a timed row's ms positive and its value finite; a derived row
+    (a delta may be negative) finite; a check within its limit."""
+    lines = [_probe_line("perf_probe"), _probe_line("perf_probe", label="delta", derived=True, ms=-0.5),
+             _probe_line("perf_probe", label="equivalence", check=True, max_abs_err=1e-3, limit=2e-3)]
+    bad = {"probe": _probe_line("pool_probe"), "device": _probe_line("perf_probe", device="cpu"),
+           "ms": _probe_line("perf_probe", ms=0.0, ms_per_img=0.0),
+           "value": _probe_line("perf_probe", value=float("nan")),
+           "per_img": _probe_line("perf_probe", ms_per_img=2.0),
+           "check": _probe_line("perf_probe", check=True, max_abs_err=3e-3, limit=2e-3),
+           "derived": _probe_line("perf_probe", derived=True, ms=float("inf"))}
+    if spoil:
+        with pytest.raises(AssertionError, match="perf_probe line"):
+            chip_smoke.check_probe_lines("perf_probe", lines + [bad[spoil]], SMI)
+        return
+    assert len(chip_smoke.check_probe_lines("perf_probe", lines, SMI)) == 3
+
+
+def _fake_probes(spoil=None):
+    """Stand-ins for the eleven twins: each prints a row and launches
+    refine_tail and septail_step as PROBE_RUNS says its rows do."""
+    import types
+
+    fakes = []
+    for module, argv, k3, s1 in chip_smoke.PROBE_RUNS:
+        name = chip_smoke.probe_name(module)
+
+        def main(args, name=name, k3=k3, s1=s1):
+            assert args[-4:] == ["--iters", str(chip_smoke.PROBE_ITERS), "--repeats", "1"]
+            chip_smoke.refine_tail.launches += k3 * chip_smoke.PROBE_CALLS + (spoil == name)
+            chip_smoke.septail_step.launches += s1 * chip_smoke.PROBE_CALLS
+            labels = {"half_probe": "flagship d3 (32,64,128): FULL pipeline K=5", "fcn_block_probe": "delta fc6+fc7"}
+            print(_probe_line(name, label=labels.get(name, "row"), ms=150.0, ms_per_img=75.0))
+            return 0
+
+        fakes.append((types.SimpleNamespace(__name__=module.__name__, main=main), argv, k3, s1))
+    return fakes
+
+
+@pytest.mark.parametrize("spoil", [None, "perf_probe", "half_probe"])
+def test_probe_main_path_counts_the_launches_each_twin_implies(monkeypatch, capsys, spoil):
+    """Phase 32's main path over stand-ins for the twins: K3 launched as
+    perf_probe's, pipeline_probe's and half_probe's rows imply, S1 as
+    fused_probe's; a wrong count fails the run."""
+    monkeypatch.setattr(chip_smoke, "PROBE_RUNS", _fake_probes(spoil))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke.refine_tail, "launches", 0)
+    monkeypatch.setattr(chip_smoke.refine_tail, "strided_launches", 0)
+    monkeypatch.setattr(chip_smoke.septail_step, "launches", 0)
+    if spoil:
+        with pytest.raises(AssertionError, match=f"{spoil} launched"):
+            chip_smoke.probe_main_path(SMI)
+        return
+    recs, k3, s1 = chip_smoke.probe_main_path(SMI)
+    k, calls = chip_smoke.K_STEPS, chip_smoke.PROBE_CALLS
+    assert k3 == calls * (2 * k * len(chip_smoke.PROBE_BATCHES) + (1 + k + 2) + 4 * (k + 1))
+    assert s1 == calls and len(recs) == 11
+    assert chip_smoke.PROBE_RUNS[0][1] == ["--batches", 4, 8, 16, 32, 128]
+    assert capsys.readouterr().out.count("lines in") == 11
+
+
+def test_probe_kernel_checks_hold_the_rows_and_a_spoiled_kernel_fails(monkeypatch, capsys):
+    """Phase 32's kernel rows at a tiny size on the CPU (the wrappers take
+    their plain versions there): held to their plain versions and op-by-op
+    rows; a kernel one bf16 ulp-and-a-bit off fails."""
+    from iterative_inference_segm_tpu_torch.ops import refine_tail as rt
+
+    monkeypatch.setattr(chip_smoke, "H", 16)
+    monkeypatch.setattr(chip_smoke, "W", 24)
+    monkeypatch.setattr(chip_smoke.pipeline_probe, "parse_args", lambda argv: type("A", (), {"batch": 2}))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    worst = chip_smoke.probe_kernel_checks("cpu")
+    assert worst["refine_tail"] <= chip_smoke.BF16_TOL and worst["septail_step"] <= chip_smoke.BF16_TOL
+    out = capsys.readouterr().out
+    assert out.count("against its plain version") == 3 and out.count("differing only at near-ties True") == 6
+    real = rt.refine_tail_reference  # what the wrapper runs on a CPU tensor; chip_smoke holds its own name
+    monkeypatch.setattr(rt, "refine_tail_reference", lambda *a, **k: real(*a, **k) + 2.0**-6)
+    with pytest.raises(AssertionError, match="pipeline_probe 'tail: deconv"):
+        chip_smoke.probe_kernel_checks("cpu")
+
+
+@pytest.mark.parametrize("spoil", [None, "no_fc6"])
+def test_probe_profiles_report_fc6s_share(monkeypatch, capsys, spoil):
+    """Phase 32's traces over a stand-in for the profiler: the flagship at
+    batch 128 and 32 through the bench twin's pipeline, fc6's convolutions'
+    share printed; a trace that gives fc6 no device time fails."""
+    from iterative_inference_segm_tpu_torch.tools import profile_general
+
+    parse = chip_smoke.bench_tool.parse_args
+    monkeypatch.setattr(chip_smoke.bench_tool, "parse_args", lambda argv: type(parse(argv))(
+        **{**vars(parse(argv)), "batch": 1, "fc_channels": 16, "dae_widths": [8, 16, 32]}))
+    monkeypatch.setattr(chip_smoke, "synthetic_batches", lambda **kw: [(
+        np.zeros((1, 32, 32, 3), np.float32), None)])
+    monkeypatch.setattr(chip_smoke, "H", 32)
+    monkeypatch.setattr(chip_smoke, "W", 32)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    seen = []
+
+    def fake_profile(refine, x, iters, weights):
+        seen.append((tuple(x.shape), int(refine(x)) >= 0, weights))
+        summary = profile_general.summarize([("conv", 600.0), ("fc6 gemm", 200.0)], iters, 0.8, "refine_tail")
+        summary["by_weight"] = {w: (0.05, 0.125) for w in weights}
+        summary["by_weight"][weights[0]] = (0.0 if spoil else 0.1, 0.0 if spoil else 0.25)
+        return {"event_ms": 2.0, "busy_ms": 0.4, **summary}
+
+    import numpy as np
+
+    monkeypatch.setattr(chip_smoke.profile_tool, "profile", fake_profile)
+    if spoil:
+        with pytest.raises(AssertionError, match="no device time to fc6"):
+            chip_smoke.probe_profiles("cpu", SMI)
+        return
+    profs = chip_smoke.probe_profiles("cpu", SMI)
+    assert list(profs) == [128, 32] and seen == [((1, 32, 32, 3), True, tuple(chip_smoke.PROBE_LAYERS.values()))] * 2
+    out = capsys.readouterr().out
+    assert out.count("fc6 0.100 ms (25.0% of device time)") == 2 and out.count("DAE enc1 0.050 ms (12.5%)") == 2
+
+
+def test_conv_device_ms_sums_the_convolutions_of_one_weight():
+    """profile_general.conv_device_ms over stand-in trace events: the
+    aten::conv2d events holding the weight shape, their device time a
+    forward."""
+    import types
+
+    from iterative_inference_segm_tpu_torch.tools import profile_general
+
+    ev = [types.SimpleNamespace(name="aten::conv2d", input_shapes=[[8, 512, 12, 15], [4096, 512, 7, 7], [4096]],
+                                device_time_total=3000.0),
+          types.SimpleNamespace(name="aten::conv2d", input_shapes=[[8, 4096, 12, 15], [4096, 4096, 1, 1], [4096]],
+                                device_time_total=900.0),
+          types.SimpleNamespace(name="aten::cudnn_convolution", input_shapes=[[8, 512, 12, 15], [4096, 512, 7, 7]],
+                                device_time_total=2900.0),
+          types.SimpleNamespace(name="aten::conv2d", input_shapes=[[8, 512, 12, 15], [4096, 512, 7, 7], [4096]],
+                                device_time_total=3000.0)]
+    assert profile_general.conv_device_ms(ev, (4096, 512, 7, 7), iters=2) == pytest.approx(3.0)
+    assert profile_general.conv_device_ms(ev, (11, 11, 3, 3), iters=2) == 0.0
+
+
+def test_busy_us_is_the_union_of_overlapping_intervals():
+    """Kernels on concurrent streams overlap: their summed durations pass the
+    time the device was busy, which the idle share reads."""
+    from iterative_inference_segm_tpu_torch.tools import profile_general
+
+    assert profile_general.busy_us([(0.0, 10.0), (5.0, 12.0), (20.0, 25.0), (21.0, 22.0)]) == 17.0
+    assert profile_general.busy_us([]) == 0.0
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A phase's function defined twice silently replaces the first (phase
+    11's ``run_probe_phase`` and phase 32's once shared a name)."""
+    import ast
+    import collections
+    import pathlib
+
+    tree = ast.parse(pathlib.Path(chip_smoke.__file__).read_text())
+    names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.ClassDef))]
+    names += [t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets if isinstance(t, ast.Name)]
+    assert [k for k, v in collections.Counter(names).items() if v > 1] == []
