@@ -225,23 +225,34 @@ Each rank counts its own kernel launches; the kernel report adds them.
                 fused --dae-tail sep at batch 128 with a bf16 and an f32
                 carry (septail_step K a forward, refine_tail none) and the
                 fused_bench twin's four variants (images/s)
-32. probes   -- the eleven twins of the JAX system's decomposition probes
+32. probes   -- the eighteen twins of the JAX system's decomposition probes
                 (tools/{perf,pipeline,fcn_block,fwd_shape,half,core,
-                tail_ops,dae_op,pool,fused,train_itemize}_probe.py): first,
+                tail_ops,dae_op,pool,fused,train_itemize,tailfold,tail2,
+                scan_variants,int8,aug,aug_order,aug_step}_probe.py): first,
                 not counted, their kernel rows at full width (batch 128)
                 held to their plain versions (f32 1e-5, bf16 2^-8) and to
                 their op-by-op rows (bf16 logits: 2^-8), argmax >= 99.9%:
                 pipeline_probe's two tail rows (K3), fused_probe's phase
-                step (S1); the flagship forward as the bench twin runs it at
-                batch 128 and 32 under torch.profiler (device time, idle
-                share, top operations, fc6's convolutions' share); then,
-                the counts set to 0, each twin's main with --iters 2
-                --repeats 1 (perf_probe at batches 4..128): every JSON line
-                its probe's and stamped with the card, each timed row's ms
-                finite and positive, refine_tail and septail_step launched
-                as the rows imply; its wall time; half_probe's flagship
-                pipeline beside the bench twin's batch 128, fcn_block_probe's
-                fc6+fc7 delta beside fc6 alone at batch 32
+                step (S1), scan_variants_probe's pipeline step at an f32 and
+                a bf16 carry (K3), tailfold_probe's port step (K3, against
+                the op-by-op v2 step); the flagship forward as the bench
+                twin runs it at batch 128 and 32 under torch.profiler
+                (device time, idle share, top operations, fc6's
+                convolutions' share); the top three device kernels of
+                tail2_probe's three 11-channel conv rows (NHWC -> NHWC,
+                NHWC -> NCHW, NCHW -> NCHW) and of tailfold_probe's v1 and
+                v2 steps, traced in a fresh process; then, the counts set to
+                0, each twin's main with
+                --iters 2 --repeats 1 (perf_probe at batches 4..128): every
+                JSON line its probe's and stamped with the card, each timed
+                row's ms finite and positive, each asserted check within its
+                limit, refine_tail and septail_step launched as the rows
+                imply (scan_variants_probe's graph replays counted as the
+                launches they captured); its wall time; half_probe's
+                flagship pipeline beside the bench twin's batch 128,
+                fcn_block_probe's fc6+fc7 delta beside fc6 alone at batch
+                32, tailfold_probe's K = 5 loops beside the bench twin's
+                folded forward; the seven twins added last, their wall time
 Phases 4, 10, 12, 13, 16-20, 22, 24-27, 29 and 30 also assert that no refine_tail
 launch of theirs took the kernel's strided staging. Every phase asserts; any failure
 (in any rank) raises and the exit code is non-zero. The line before the last is the kernel
@@ -278,12 +289,23 @@ from iterative_inference_segm_tpu_torch.data.prefetch import device_prefetch
 from iterative_inference_segm_tpu_torch.data.synthetic import synthetic_batches
 from iterative_inference_segm_tpu_torch.inference import fused as fused_engine
 from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn
-from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner, refinement_scan
+from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan, make_refiner
 from iterative_inference_segm_tpu_torch.inference.predictor import Predictor
 from iterative_inference_segm_tpu_torch.inference.search import grid_search_eps_k, grid_search_eps_k_half
-from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_core, dae_logits, init_dae
+from iterative_inference_segm_tpu_torch.models.dae import (
+    DAE_H_CHANNELS,
+    dae_apply,
+    dae_core,
+    dae_logits,
+    init_dae,
+)
 from iterative_inference_segm_tpu_torch.models.fcn8 import dropout_masks, fcn8_apply, fcn8_backbone, fcn8_logits, init_fcn8
-from iterative_inference_segm_tpu_torch.models.registry import init_score_template, score_kwargs, score_logits_fn
+from iterative_inference_segm_tpu_torch.models.registry import (
+    init_score_template,
+    score_apply_fn,
+    score_kwargs,
+    score_logits_fn,
+)
 from iterative_inference_segm_tpu_torch.ops import _build
 from iterative_inference_segm_tpu_torch.ops import corruption_kernel as ck
 from iterative_inference_segm_tpu_torch.ops import vpu_probe as vp
@@ -307,16 +329,23 @@ from iterative_inference_segm_tpu_torch.tools import serve_bench as serve_tool
 from iterative_inference_segm_tpu_torch.tools import train_bench as train_tool
 from iterative_inference_segm_tpu_torch.tools import vpu_probe as probe_tool
 from iterative_inference_segm_tpu_torch.tools import (
+    aug_order_probe,
+    aug_probe,
+    aug_step_probe,
     core_probe,
     dae_op_probe,
     fcn_block_probe,
     fused_probe,
     fwd_shape_probe,
     half_probe,
+    int8_probe,
     perf_probe,
     pipeline_probe,
     pool_probe,
+    scan_variants_probe,
+    tail2_probe,
     tail_ops_probe,
+    tailfold_probe,
     train_itemize_probe,
 )
 from iterative_inference_segm_tpu_torch.tools.timing import bf16, chained_ms, nvidia_smi
@@ -1302,7 +1331,7 @@ def run_energy_parity(dev, dae, dae_c, fcn_c, img, *, logits=None, tag="general"
             yd = y.to(d_)
             r = torch.softmax(fn(yd).float(), -1)
             energy = 0.5 * torch.sum(torch.square(yd - r)).item()
-            y1 = refinement_scan(fn, yd, eps=EPS, num_steps=1, mode="energy")
+            y1 = logits_refinement_scan(fn, yd, eps=EPS, num_steps=1, mode="energy")
             runs[where] = (energy, y1.cpu(), ((yd - y1) / EPS).cpu(), (yd - r).cpu())
     e_rel = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
     stats = {}
@@ -1360,7 +1389,7 @@ def run_general_phase(dev, fcn, smi):
     out = {}
     for mode in ("score", "energy"):
         for where, d_, f, d in (("card", dev, fcn, dae), ("cpu", "cpu", fcn_c, dae_c)):
-            refine = make_refiner(fcn8_apply, dae_logits, f, d, eps=EPS, num_steps=K_STEPS, mode=mode,
+            refine = make_refiner(fcn8_apply, dae_apply, f, d, eps=EPS, num_steps=K_STEPS, mode=mode,
                                   compute_dtype=torch.float32, dae_kwargs={"depth": 4})
             t0 = time.perf_counter()
             out[mode, where] = [t.cpu() for t in refine(img.to(d_))]
@@ -1376,7 +1405,7 @@ def run_general_phase(dev, fcn, smi):
     torch.cuda.reset_peak_memory_stats()
     timing = {}
     for mode in ("score", "energy"):
-        refine = make_refiner(fcn8_apply, dae_logits, fcn, dae, eps=EPS, num_steps=K_STEPS, mode=mode,
+        refine = make_refiner(fcn8_apply, dae_apply, fcn, dae, eps=EPS, num_steps=K_STEPS, mode=mode,
                               compute_dtype=torch.bfloat16, dae_kwargs={"depth": 4})
         for batch in (4, 8):
             x = torch.randn((batch, H, W, 3), generator=torch.Generator().manual_seed(6)).to(dev)
@@ -1415,7 +1444,7 @@ def run_search_phase(dev, fcn, flag_dae):
               compute_dtype=torch.bfloat16)
     reset_tail_counts()
     t0 = time.perf_counter()
-    gen = grid_search_eps_k(fcn8_apply, dae_logits, fcn, dae, val, dae_kwargs={"depth": 4}, **kw)
+    gen = grid_search_eps_k(fcn8_apply, dae_apply, fcn, dae, val, dae_kwargs={"depth": 4}, **kw)
     half = grid_search_eps_k_half(fcn8_apply, fcn, flag_dae, val, depth=3, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1438,8 +1467,8 @@ def run_search_phase(dev, fcn, flag_dae):
         def general_labels(x, eps=eps, k=k):
             with torch.inference_mode():
                 y0, h = fcn8_apply(fcn, x, return_features=("pool4",), compute_dtype=torch.bfloat16)
-                yk = refinement_scan(lambda y: dae_logits(dae, y, h, depth=4, compute_dtype=torch.bfloat16),
-                                     y0, eps=eps, num_steps=k)
+                yk = logits_refinement_scan(
+                    lambda y: dae_logits(dae, y, h, depth=4, compute_dtype=torch.bfloat16), y0, eps=eps, num_steps=k)
             return yk.argmax(-1)
 
         fwd = flagship_forward_fn(eps=eps, num_steps=k, depth=3, compute_dtype=torch.bfloat16,
@@ -1747,8 +1776,8 @@ def run_score_parity(name, dev, logits, params, params_c, y0, h):
         hd = {k: v.to(d_) for k, v in h.items()}
         t0 = time.perf_counter()
         with torch.inference_mode():
-            ys[where] = refinement_scan(lambda yy, p=p, hd=hd: logits(p, yy, hd), y.to(d_), eps=EPS,
-                                        num_steps=K_STEPS).cpu()
+            ys[where] = logits_refinement_scan(lambda yy, p=p, hd=hd: logits(p, yy, hd), y.to(d_), eps=EPS,
+                                               num_steps=K_STEPS).cpu()
         ys[where, "s"] = time.perf_counter() - t0
     stats = {}
     for other in ("card", "cpu+1e-7"):
@@ -1806,8 +1835,8 @@ def run_arch_phase(dev, fcn, smi):
                           logits=lambda p, y, h: logits(p, y, h, **kwargs))
         # images/s at batch 4, bf16
         for mode in ("score", "energy"):
-            refine = make_refiner(fcn8_apply, logits, fcn, params, eps=EPS, num_steps=K_STEPS, mode=mode,
-                                  h_taps=taps, compute_dtype=torch.bfloat16, dae_kwargs=kwargs)
+            refine = make_refiner(fcn8_apply, score_apply_fn(arch), fcn, params, eps=EPS, num_steps=K_STEPS,
+                                  mode=mode, h_taps=taps, compute_dtype=torch.bfloat16, dae_kwargs=kwargs)
             x = torch.randn((GENERAL_BATCH, H, W, 3), generator=torch.Generator().manual_seed(6)).to(dev)
             ms = cuda_ms(lambda: refine(x), iters=5)
             timing[name, mode] = GENERAL_BATCH * 1000.0 / ms
@@ -2484,8 +2513,9 @@ def par_pp(mesh, device, engine, arch, microbatches, names=None, sizes=None, pre
                 return flagship_forward_fn(num_steps=K_STEPS, eps=EPS, depth=3, compute_dtype=dtype)(fcn, dae, xx)[1]
             logits = score_logits_fn(arch)
             y0, h = fcn8_apply(fcn, xx, return_features=("pool4",), compute_dtype=dtype)
-            return refinement_scan(lambda y: logits(dae, y, h, compute_dtype=dtype, **score_kwargs(arch, depth=4)),
-                                   y0, eps=EPS, num_steps=K_STEPS)
+            return logits_refinement_scan(
+                lambda y: logits(dae, y, h, compute_dtype=dtype, **score_kwargs(arch, depth=4)), y0, eps=EPS,
+                num_steps=K_STEPS)
 
     ref = torch.cat([one_process(x[i:i + chunk]) for i in range(0, BATCH, chunk)]).float()
     d = (yk - ref).abs()
@@ -2996,7 +3026,7 @@ def par_space(mesh, device):
             torch.cuda.synchronize()
         out["fcn_s"], out["log"] = time.perf_counter() - t0, log
         t0 = time.perf_counter()
-        g0, gk = make_refiner(fcn8_apply, score_logits_fn("dae"), fcn, gdae, space_group=group, **general)(xs)
+        g0, gk = make_refiner(fcn8_apply, score_apply_fn("dae"), fcn, gdae, space_group=group, **general)(xs)
         torch.cuda.synchronize()
         out["general_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -3029,7 +3059,7 @@ def par_space(mesh, device):
     if _rank() == 0:
         with torch.no_grad():
             ref = {"fcn": fcn8_apply(fcn, x)[0]}
-        ref["g0"], ref["gk"] = make_refiner(fcn8_apply, score_logits_fn("dae"), fcn, gdae, **general)(x)
+        ref["g0"], ref["gk"] = make_refiner(fcn8_apply, score_apply_fn("dae"), fcn, gdae, **general)(x)
         ref["h0"], ref["hk"] = make_half_refiner(fcn8_apply, fcn, dae, **half)(x)
         out["err"] = {k: (got[k] - ref[k].float()).abs().max().item() for k in got}
         out["agree"] = {k: (got[k].argmax(-1) == ref[k].float().argmax(-1)).float().mean().item() for k in got}
@@ -3340,7 +3370,7 @@ def run_fused_engine_checks(dev, smi):
         y0, h = fcn8_apply(fcn, x, return_features=("pool4",))
         core_fn = lambda yp: dae_core(dae_p, yp, h, depth=3, stem_pool=1)  # noqa: E731
         got = fused_engine.fused_refinement_scan(dae_p, core_fn, y0, eps=EPS, num_steps=K_STEPS)
-        want = refinement_scan(lambda y: dae_logits(dae_p, y, h, depth=3), y0, eps=EPS, num_steps=K_STEPS)
+        want = logits_refinement_scan(lambda y: dae_logits(dae_p, y, h, depth=3), y0, eps=EPS, num_steps=K_STEPS)
     torch.cuda.synchronize()
     d = (got - want).abs().max().item()
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
@@ -3439,19 +3469,31 @@ def run_fused_phase(dev, smi):
 PROBE_ITERS = 2  # a chained block of 2 calls after one warm-up call, one block (the twins' defaults: 8-20, 1-3)
 PROBE_CALLS = 1 + PROBE_ITERS  # calls of each timed row
 PROBE_BATCHES = (4, 8, 16, 32, 128)  # perf_probe: the JAX defaults, then the bench's batches
-PROBE_RUNS = (  # (module, argv, refine_tail launches a call of its rows, septail_step launches a call)
-    (perf_probe, ["--batches", *PROBE_BATCHES], 2 * K_STEPS * len(PROBE_BATCHES), 0),  # the scan and the pipeline
-    (pipeline_probe, [], 1 + K_STEPS + 2, 0),  # K = 1, K = 5, the two K3 tail rows
-    (fcn_block_probe, [], 0, 0),
-    (fwd_shape_probe, [], 0, 0),
-    (half_probe, [], len(half_probe.CONFIGS) * (K_STEPS + 1), 0),  # each configuration's pipeline
-    (core_probe, [], 0, 0),
-    (tail_ops_probe, [], 0, 0),
-    (dae_op_probe, [], 0, 0),
-    (pool_probe, [], 0, 0),
-    (fused_probe, [], 0, 1),  # the S1 row
-    (train_itemize_probe, [], 0, 0),
+PROBE_RUNS = (  # (module, argv, refine_tail launches a call of its rows, septail_step launches a call,
+    #               refine_tail launches once a run, outside the timed rows)
+    (perf_probe, ["--batches", *PROBE_BATCHES], 2 * K_STEPS * len(PROBE_BATCHES), 0, 0),  # the scan and the pipeline
+    (pipeline_probe, [], 1 + K_STEPS + 2, 0, 0),  # K = 1, K = 5, the two K3 tail rows
+    (fcn_block_probe, [], 0, 0, 0),
+    (fwd_shape_probe, [], 0, 0, 0),
+    (half_probe, [], len(half_probe.CONFIGS) * (K_STEPS + 1), 0, 0),  # each configuration's pipeline
+    (core_probe, [], 0, 0, 0),
+    (tail_ops_probe, [], 0, 0, 0),
+    (dae_op_probe, [], 0, 0, 0),
+    (pool_probe, [], 0, 0, 0),
+    (fused_probe, [], 0, 1, 0),  # the S1 row
+    (train_itemize_probe, [], 0, 0, 0),
+    (tailfold_probe, [], 1, 0, 1),  # the port's folded step; once: its f32 check against v2
+    (tail2_probe, [], 0, 0, 0),
+    # the four K = 5 pipelines, a graph replay counted as the launches it captured; once: each captured
+    # row's replay and uncaptured loop held to each other
+    (scan_variants_probe, [], 4 * K_STEPS, 0, 2 * 2 * K_STEPS),
+    (int8_probe, [], 0, 0, 0),
+    (aug_probe, [], 0, 0, 0),
+    (aug_order_probe, [], 0, 0, 0),
+    (aug_step_probe, [], 0, 0, 0),
 )
+LATER_PROBES = (tailfold_probe, tail2_probe, scan_variants_probe, int8_probe, aug_probe, aug_order_probe,
+                aug_step_probe)  # the seven twins added last: phase 32 prints their added wall time
 PROBE_PROFILE_BATCHES = (128, 32)  # the flagship forward traced at the bench's default and at 32
 PROBE_PROFILE_ITERS = 2
 FC6_WEIGHT = (4096, 512, 7, 7)  # OIHW: the convolutions the trace attributes to fc6
@@ -3479,14 +3521,16 @@ def probe_name(module) -> str:
 def check_probe_lines(name: str, lines: list[str], smi: str) -> list[dict]:
     """A twin's JSON lines: each its probe's and stamped with the card; a
     timed row's ms finite and positive, ms_per_img its share an image, its
-    value finite; a derived row's ms finite; a check within its limit."""
+    value finite; a derived row's ms finite; a check within its limit (one
+    that only reports, ``"asserted": false``, finite)."""
     recs = [json.loads(ln) for ln in lines]
     if not recs:
         raise AssertionError(f"probes: {name} printed nothing")
     for rec in recs:
         bad = rec.get("probe") != name or rec.get("device") != smi
         if rec.get("check"):
-            bad |= not rec["max_abs_err"] <= rec["limit"]
+            bad |= not (rec["max_abs_err"] <= rec["limit"] if rec.get("asserted", True)
+                        else np.isfinite(rec["max_abs_err"]))
         elif rec.get("derived"):
             bad |= not np.isfinite(rec["ms"])
         else:
@@ -3564,7 +3608,103 @@ def probe_kernel_checks(dev) -> dict:
         hold_probe_row(f"fused_probe '{k_label}' y_ph' against {ops_label}", got[0], ops()[0], BF16_TOL, class_dim=3)
     del dae, sep, y_ph, s_cl, got, plain
     torch.cuda.empty_cache()
+    worst["refine_tail"] = max(worst["refine_tail"], later_probe_kernel_checks(dev, b, c))
     return worst
+
+
+def later_probe_kernel_checks(dev, b: int, c: int) -> float:
+    """K3 in the later twins' rows at batch ``b``, held as
+    ``probe_kernel_checks`` holds the others; not counted. scan_variants_
+    probe's pipeline step at each carry (the DAE's bf16 logits at the
+    carry's dtype): against its plain version, and against the JAX row's
+    formula ``y - eps (y - softmax(u))`` at the carry's dtype (f32 1e-5;
+    bf16 PROBE_OPS_BF16_TOL, its argmax differing at near-ties alone).
+    tailfold_probe's port step (bf16, 180x240): against its plain version
+    and against the op-by-op v2 row. Returns the worst error against the
+    plain versions."""
+    worst = 0.0
+    gen = torch.Generator(dev).manual_seed(43)
+    y0 = torch.softmax(torch.randn((b, H, W, c), device=dev, generator=gen) * 2, -1)
+    logits = torch.randn((b, H, W, c), device=dev, generator=gen).to(torch.bfloat16)
+    with torch.inference_mode():
+        for carry, eps in ((torch.float32, scan_variants_probe.EPS), (torch.bfloat16, bf16(scan_variants_probe.EPS))):
+            y, u = y0.to(carry), logits.to(carry)
+            got = refine_tail(u, y, eps)
+            err, _ = hold_probe_row(f"scan_variants_probe pipeline step, {carry} carry, {tuple(y.shape)}, against its "
+                                    "plain version", got, refine_tail_reference(u, y, eps),
+                                    F32_TOL if carry == torch.float32 else BF16_TOL)
+            worst = max(worst, err)
+            hold_probe_row(f"scan_variants_probe pipeline step, {carry} carry, against the JAX row's formula", got,
+                           y - eps * (y - torch.softmax(u, -1)),
+                           *((F32_TOL,) if carry == torch.float32 else (PROBE_OPS_BF16_TOL, -1, None)))
+            del y, u, got
+        del y0, logits
+        torch.cuda.empty_cache()
+        dae = tailfold_probe.probe_dae(dev, torch.bfloat16)
+        fk = fused_engine.fold_half_tail(dae)
+        x = torch.softmax(torch.randn((b, H // 2, W // 2, c), device=dev, generator=gen), -1).to(torch.bfloat16)
+        hb = torch.randn((b, *tailfold_probe.bottleneck_hw(H // 2, W // 2), int(dae["bottleneck"]["w"].shape[0])),
+                         device=dev, generator=gen).to(torch.bfloat16)
+        u, v, bb = tailfold_probe.port_step_terms(dae, fk, x, hb)
+        got = tailfold_probe.step_port(dae, fk, x, hb)
+        err, _ = hold_probe_row(f"tailfold_probe '{tailfold_probe.PORT_LABEL}' {tuple(x.shape)} against its plain "
+                                "version", got, refine_tail_reference(u, x, tailfold_probe.EPS, v=v, b=bb), BF16_TOL)
+        worst = max(worst, err)
+        hold_probe_row(f"tailfold_probe '{tailfold_probe.PORT_LABEL}' against the op-by-op v2 step", got,
+                       tailfold_probe.step_v2(dae, fk, x, hb), PROBE_OPS_BF16_TOL, -1, None)
+    del dae, x, hb, u, v, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def fresh_conv_traces() -> float:
+    """``probe_conv_traces`` in a fresh process; returns its wall seconds.
+    In this process, after the earlier phases, the profiler returned no
+    device event at all for these short traces (the same traces in a fresh
+    process, before or after the flagship's, keep them all)."""
+    t0 = time.perf_counter()
+    code = "import torch, chip_smoke; chip_smoke.probe_conv_traces(torch.device('cuda', 0))"
+    out = subprocess.run([sys.executable, "-c", code], cwd=pathlib.Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=900)
+    sys.stdout.write(out.stdout)
+    sys.stdout.flush()
+    if out.returncode != 0:
+        raise AssertionError(f"probes: the conv traces failed: {out.stderr[-3000:]}")
+    return time.perf_counter() - t0
+
+
+def probe_conv_traces(dev) -> dict:
+    """Which device kernels the 11-channel convolutions run: tail2_probe's
+    three 3x3 C x C conv rows (NHWC -> NHWC, NHWC -> NCHW, NCHW -> NCHW) at
+    batch 128, 360x480, and tailfold_probe's v1 and v2 steps at 180x240,
+    bf16, each under torch.profiler (``profile_general.profile``,
+    ``PROBE_PROFILE_ITERS`` calls); prints each one's top three device
+    kernels. Not counted. Returns {row: top three (name, ms, share)}."""
+    b, c, cd = pipeline_probe.parse_args([]).batch, N_CLASSES, torch.bfloat16
+    gen = torch.Generator(dev).manual_seed(44)
+    y = torch.softmax(torch.randn((b, H, W, c), device=dev, generator=gen), -1).to(cd)
+    w_si = (0.1 * torch.randn((c, c, 3, 3), device=dev, generator=gen)).to(cd)
+    b_si = torch.zeros((c,), device=dev, dtype=cd)
+    dae = tailfold_probe.probe_dae(dev, cd)
+    fk = fused_engine.fold_half_tail(dae)
+    x = torch.softmax(torch.randn((b, H // 2, W // 2, c), device=dev, generator=gen), -1).to(cd)
+    hb = torch.randn((b, *tailfold_probe.bottleneck_hw(H // 2, W // 2), int(dae["bottleneck"]["w"].shape[0])),
+                     device=dev, generator=gen).to(cd)
+    steps = dict(tailfold_probe.STEPS)
+    convs = tail2_probe.conv_cases(y, y.permute(0, 3, 1, 2).contiguous(), w_si, b_si)
+    rows = [(f"tail2_probe '{label}'", fn) for label, fn in convs]
+    rows += [(f"tailfold_probe step {v}", lambda v=v: (steps[v](dae, fk, x, hb),)) for v in ("v1", "v2")]
+    out = {}
+    with torch.inference_mode():
+        for label, fn in rows:
+            prof = profile_tool.profile(lambda _, fn=fn: fn(), None, iters=PROBE_PROFILE_ITERS)
+            out[label] = prof["top"][:3]
+            phase("probes", f"{label}: {prof['event_ms']:.3f} ms a call by CUDA events, {prof['device_ms']:.3f} ms of "
+                  "device time; top kernels: " + "; ".join(f"{name[:100]} {ms:.3f} ms ({share:.1%})"
+                                                          for name, ms, share in out[label]))
+    del y, dae, x, hb
+    torch.cuda.empty_cache()
+    return out
 
 
 def probe_profiles(dev, smi) -> dict:
@@ -3599,18 +3739,19 @@ def probe_profiles(dev, smi) -> dict:
     return out
 
 
-def probe_main_path(smi) -> tuple[dict, int, int]:
+def probe_main_path(smi) -> tuple[dict, int, int, dict]:
     """Each twin's main as a user runs it, short (``--iters 2 --repeats
     1``): its lines checked (``check_probe_lines``), its wall time, and
     refine_tail and septail_step launched as its rows imply. Returns (lines
-    by probe, K3 launches, S1 launches)."""
-    recs, k3, s1 = {}, 0, 0
-    for module, argv, k3_call, s1_call in PROBE_RUNS:
+    by probe, K3 launches, S1 launches, wall seconds by probe)."""
+    recs, k3, s1, walls = {}, 0, 0, {}
+    for module, argv, k3_call, s1_call, k3_once in PROBE_RUNS:
         name = probe_name(module)
         before = refine_tail.launches, septail_step.launches
         lines, secs = run_cli(module.main, [*argv, "--iters", PROBE_ITERS, "--repeats", 1])
+        walls[name] = secs
         got = refine_tail.launches - before[0], septail_step.launches - before[1]
-        want = k3_call * PROBE_CALLS, s1_call * PROBE_CALLS
+        want = k3_call * PROBE_CALLS + k3_once, s1_call * PROBE_CALLS
         if got != want:
             raise AssertionError(f"probes: {name} launched refine_tail, septail_step {got}; expected {want}")
         check_no_strided(f"probes {name}")
@@ -3621,7 +3762,7 @@ def probe_main_path(smi) -> tuple[dict, int, int]:
         for rec in recs[name]:
             phase("probes", f"   {json.dumps(rec)}")
         torch.cuda.empty_cache()
-    return recs, k3, s1
+    return recs, k3, s1, walls
 
 
 def run_probes_phase(dev, smi, bench_readings) -> dict:
@@ -3633,9 +3774,10 @@ def run_probes_phase(dev, smi, bench_readings) -> dict:
     t_phase = time.perf_counter()
     worst = probe_kernel_checks(dev)
     profiles = probe_profiles(dev, smi)
+    t_traces = fresh_conv_traces()
     reset_counts()
     septail_step.launches = 0
-    recs, k3, s1 = probe_main_path(smi)
+    recs, k3, s1, walls = probe_main_path(smi)
     if refine_tail.launches != k3 or septail_step.launches != s1 or not (k3 and s1):
         raise AssertionError(f"probes: refine_tail {refine_tail.launches}, septail_step {septail_step.launches}")
     by_label = {(name, r["label"]): r for name, rs in recs.items() for r in rs}
@@ -3643,6 +3785,13 @@ def run_probes_phase(dev, smi, bench_readings) -> dict:
     bench_ms = 128e3 / bench_readings["b128"]
     phase("probes", f"half_probe flagship FULL pipeline K=5 (unfolded) {flag:.2f} ms against the bench twin's batch "
           f"128 (folded) {bench_ms:.2f} ms: {flag / bench_ms:.3f}x")
+    loops = {v: by_label[("tailfold_probe", f"K=5 scan {v}")]["ms"] for v in ("v0", "v1", "v2")}
+    phase("probes", "tailfold_probe K = 5 loops of the pooled step alone at batch 128: " + ", ".join(
+        f"{v} {ms:.2f} ms" for v, ms in loops.items()) + f"; v1 / v2 {loops['v1'] / loops['v2']:.3f}; beside the bench "
+          f"twin's folded forward (FCN, five v2 steps, the rectification) {bench_ms:.2f} ms")
+    later = sum(walls[probe_name(m)] for m in LATER_PROBES)
+    phase("probes", f"the seven twins added last ({', '.join(probe_name(m) for m in LATER_PROBES)}): their mains "
+          f"{later:.1f} s, the conv traces {t_traces:.1f} s")
     fcn, _ = flagship_params(dev)
     w6, b6 = fcn["fc6"]["w"].to(torch.bfloat16), fcn["fc6"]["b"].to(torch.bfloat16)
     b = fcn_block_probe.B

@@ -5,7 +5,7 @@ score network's refinement through either engine (``dae_arch`` 'dae',
 'mirror' or 'contextmod' on the general engine, 'dae' alone on the half
 engine, whose pooled iteration needs the DAE's stem). ``engine='general'`` (the default, as
 in the JAX package) runs K full-resolution steps of ``inference.iterative.
-refinement_scan`` on the FCN's f32 softmax and returns f32 probabilities;
+logits_refinement_scan`` (score steps through K3) on the FCN's f32 softmax and returns f32 probabilities;
 ``engine='half'`` runs the pooled-scale engine (``inference.fused.
 halfres_refine``, folded tail where legal), whose rectification kernel also
 emits the label map. Both serve score and energy modes. A DAE refines when
@@ -36,7 +36,7 @@ import torch
 from iterative_inference_segm_tpu_torch.data.config_datasets import CAMVID, DatasetConfig
 from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
 from iterative_inference_segm_tpu_torch.inference.fused import check_mode, halfres_refine, no_autograd
-from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
+from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
 from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
 from iterative_inference_segm_tpu_torch.models.registry import (
     expected_meta,
@@ -221,7 +221,7 @@ class Predictor:
         if not self._refine:
             return torch.argmax(y0, dim=-1).to(torch.int32), y0
         if not half:
-            y = refinement_scan(
+            y = logits_refinement_scan(
                 lambda yy: self._score_logits(
                     self._dae, yy, h, compute_dtype=self._compute_dtype, **self._dae_kwargs
                 ),

@@ -2,12 +2,15 @@
 ``iterative_inference_segm_tpu.inference.search``).
 
 One K_max-step trajectory per eps scores every prefix K <= K_max: the
-general search stacks the iterates (``refine_with_trajectory``) and takes
-a confusion matrix of each; the half-engine search scores the engine's own
+general search stacks the iterates (``logits_refinement_scan`` with
+``trajectory=True``) and takes a confusion matrix of each; the half-engine search scores the engine's own
 output ``rectify(x_k)`` at every k of one pooled trajectory, sharing each
 step's core output between the rectification and the update. The steps run
 the engines' own code, so score steps go through the tail kernel on a CUDA
-tensor and the search selects under the numerics it will serve.
+tensor and the search selects under the numerics it will serve. Both take
+JAX's calls: ``grid_search_eps_k`` the score network's probability apply
+(``dae_apply``, ``mirror_dae_apply``, ``contextmod_apply``), and
+``device`` defaults to the DAE params' device.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from iterative_inference_segm_tpu_torch.inference.fused import (
     half_step_gradient,
     no_autograd,
 )
-from iterative_inference_segm_tpu_torch.inference.iterative import refine_with_trajectory
+from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
 from iterative_inference_segm_tpu_torch.models.dae import (
     dae_core,
     dae_stem_pool_of,
@@ -46,6 +49,15 @@ def _best(miou: np.ndarray, eps_grid: Sequence[float]) -> dict:
         "best_miou": float(miou[best_ei, best_k]),
         "miou": miou,
     }
+
+
+def _device(device, dae_params) -> torch.device:
+    """``device``, or where the DAE params are (JAX's call names none)."""
+    if device is not None:
+        return torch.device(device)
+    from iterative_inference_segm_tpu_torch.train.loop import device_of
+
+    return device_of(dae_params)
 
 
 def _grid(batches, eps_grid, k_max, device, cms_fn) -> np.ndarray:
@@ -68,7 +80,7 @@ def _grid(batches, eps_grid, k_max, device, cms_fn) -> np.ndarray:
 
 def grid_search_eps_k(
     fcn_apply: Callable,
-    score_logits: Callable,
+    dae_apply: Callable,
     fcn_params: dict,
     dae_params: dict,
     batches: Iterable[tuple[np.ndarray, np.ndarray]],
@@ -76,7 +88,7 @@ def grid_search_eps_k(
     n_classes: int,
     eps_grid: Sequence[float],
     k_max: int,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     h_taps: tuple[str, ...] = ("pool4",),
     mode: str = "score",
     renorm: str = "none",
@@ -87,7 +99,16 @@ def grid_search_eps_k(
     0..k_max) on ``batches`` ((normalized images NHWC, labels BHW) numpy
     pairs, re-iterated per eps). Returns {'best_eps', 'best_k',
     'best_miou', 'miou': (n_eps, k_max + 1) array}; ties go to the first
-    (smallest eps, then smallest K), as ``np.argmax``."""
+    (smallest eps, then smallest K), as ``np.argmax``. ``dae_apply`` is the
+    score network's probability apply, as in JAX; it is mapped to its
+    logits twin (``models.registry.score_logits_of``, which raises a
+    ``ValueError`` for any other callable) and the trajectory runs
+    ``logits_refinement_scan``, so score steps launch K3 on the card.
+    ``device``: where the batches go, by default the DAE params'."""
+    from iterative_inference_segm_tpu_torch.models.registry import score_logits_of
+
+    score_logits = score_logits_of(dae_apply)
+    device = _device(device, dae_params)
     batches = list(batches)
     dae_kwargs = dict(dae_kwargs or {})
     dae_kwargs.setdefault("compute_dtype", compute_dtype)
@@ -95,9 +116,9 @@ def grid_search_eps_k(
     def cms_fn(eps, x, labels):
         with no_autograd(mode):
             y0, h = fcn_apply(fcn_params, x, return_features=h_taps, compute_dtype=compute_dtype)
-            traj = refine_with_trajectory(
+            traj = logits_refinement_scan(
                 lambda y: score_logits(dae_params, y, h, **dae_kwargs), y0,
-                eps=eps, num_steps=k_max, mode=mode, renorm=renorm,
+                eps=eps, num_steps=k_max, mode=mode, renorm=renorm, trajectory=True,
             )
             preds = torch.argmax(traj, dim=-1)
             return torch.stack([confusion_matrix(p, labels, n_classes=n_classes) for p in preds])
@@ -114,7 +135,7 @@ def grid_search_eps_k_half(
     n_classes: int,
     eps_grid: Sequence[float],
     k_max: int,
-    device: torch.device | str,
+    device: torch.device | str | None = None,
     h_taps: tuple[str, ...] = ("pool4",),
     depth: int = 3,
     compute_dtype=torch.float32,
@@ -124,7 +145,8 @@ def grid_search_eps_k_half(
     """(eps, K) search for the half engine, whose K=0 is one rectification
     pass: row k of each eps is the engine's output with ``num_steps=k``.
     Score mode with the 'full' tail scores the folded step, as the engine
-    serves it; energy mode and the 'sep' tail the unfolded one."""
+    serves it; energy mode and the 'sep' tail the unfolded one. ``device``
+    as in ``grid_search_eps_k``."""
     batches = list(batches)
     sp = dae_stem_pool_of(dae_params)
     if sp < 1:
@@ -133,6 +155,7 @@ def grid_search_eps_k_half(
         if x.shape[1] % (1 << sp) or x.shape[2] % (1 << sp):
             raise ValueError(f"half engine requires H, W divisible by {1 << sp}; got batch {x.shape}")
     fold = mode == "score" and dae_tail_of(dae_params) == "full"
+    device = _device(device, dae_params)
 
     def cms_fn(eps, x_img, labels):
         with no_autograd(mode):

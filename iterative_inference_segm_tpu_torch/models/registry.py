@@ -23,9 +23,13 @@ def validate_arch(arch: str) -> None:
 def _contextmod_only_dtype(fn):
     """The context module takes ``compute_dtype`` (and an H-sharded map's
     ``space``) alone: forward them and drop the rest (dropping the dtype
-    too would run the network in f32 under bf16)."""
-    return lambda p, y, h, **kw: fn(p, y, h, compute_dtype=kw.get("compute_dtype", torch.float32),
-                                    space=kw.get("space"))
+    too would run the network in f32 under bf16). The wrapper keeps ``fn`` as
+    its ``__wrapped__`` (``score_logits_of`` reads it)."""
+    def wrapper(p, y, h, **kw):
+        return fn(p, y, h, compute_dtype=kw.get("compute_dtype", torch.float32), space=kw.get("space"))
+
+    wrapper.__wrapped__ = fn
+    return wrapper
 
 
 def score_apply_fn(arch: str):
@@ -58,6 +62,39 @@ def score_logits_fn(arch: str):
     from iterative_inference_segm_tpu_torch.models.dae import dae_logits
 
     return dae_logits
+
+
+def _drop_out_dtype(fn):
+    """A logits apply that takes the probability apply's ``out_dtype`` and
+    drops it: the refinement's softmax is taken in f32 and rounded to the
+    iterate's dtype, whatever dtype the probability apply would emit."""
+    def logits(p, y, h=None, *, out_dtype=None, **kw):
+        return fn(p, y, h, **kw)
+
+    return logits
+
+
+def score_logits_of(apply):
+    """The logits twin of a score network's probability apply: the
+    ``dae_apply`` / ``mirror_dae_apply`` / ``contextmod_apply`` that JAX's
+    ``make_refiner`` and ``grid_search_eps_k`` take (or the wrapper
+    ``score_apply_fn`` returns) -> the apply up to the logits, with the
+    same call (``out_dtype`` accepted and dropped), which the general
+    engine's tail kernel K3 takes. Any other callable raises a
+    ``ValueError`` naming the three."""
+    from iterative_inference_segm_tpu_torch.models.contextmod import contextmod_apply, contextmod_logits
+    from iterative_inference_segm_tpu_torch.models.dae import dae_apply, dae_logits
+    from iterative_inference_segm_tpu_torch.models.dae_mirror import mirror_dae_apply, mirror_dae_logits
+
+    twins = {dae_apply: dae_logits, mirror_dae_apply: mirror_dae_logits, contextmod_apply: contextmod_logits}
+    if apply in twins:
+        return _drop_out_dtype(twins[apply])
+    if getattr(apply, "__wrapped__", None) is contextmod_apply:  # score_apply_fn("contextmod")
+        return _contextmod_only_dtype(contextmod_logits)
+    raise ValueError(
+        f"expected a score network's probability apply (dae_apply, mirror_dae_apply or contextmod_apply, "
+        f"as JAX's make_refiner and grid_search_eps_k take, or models.registry.score_apply_fn's); got {apply!r}"
+    )
 
 
 def score_kwargs(arch: str, *, depth: int, encoder: str = "pool") -> dict:

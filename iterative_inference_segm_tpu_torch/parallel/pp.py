@@ -478,7 +478,7 @@ def make_pp_flagship(
     splits FCN-8 forward | refinement, a 3-wide one VGG backbone | FCN-8
     head | refinement (``fcn8_backbone`` / ``fcn8_head``). ``engine='half'``
     refines through ``inference.fused.halfres_refine`` (the DAE only);
-    'general' through ``inference.iterative.refinement_scan`` with the
+    'general' through ``inference.iterative.logits_refinement_scan`` with the
     registry's score network (``dae_arch``) and ``renorm``. The wire carries
     {y0, the h taps, yk} (2 stages) or {pool3/4/5, y0, yk} (3 stages, which
     condition on pool taps alone); the images stay out of it.
@@ -514,7 +514,7 @@ def make_pp_flagship(
                                   mode=mode, fold_tail=fold_tail)
 
     elif engine == "general":
-        from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
+        from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
         from iterative_inference_segm_tpu_torch.models.registry import score_kwargs, score_logits_fn
 
         if state_dtype is not None or fold_tail is not None:
@@ -525,8 +525,8 @@ def make_pp_flagship(
         probs_dtype = torch.float32  # the general engine's convention
 
         def refine(dae_params, y0, h, in_hw):
-            return refinement_scan(lambda y: s_logits(dae_params, y, h, **s_kw), y0, eps=eps,
-                                   num_steps=num_steps, mode=mode, renorm=renorm)
+            return logits_refinement_scan(lambda y: s_logits(dae_params, y, h, **s_kw), y0, eps=eps,
+                                          num_steps=num_steps, mode=mode, renorm=renorm)
 
     else:
         raise ValueError(f"unknown engine {engine!r}; expected 'half' or 'general'")

@@ -81,7 +81,7 @@ def main(argv=None) -> int:
     from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner
     from iterative_inference_segm_tpu_torch.inference.search import grid_search_eps_k, grid_search_eps_k_half
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
-    from iterative_inference_segm_tpu_torch.models.registry import score_kwargs, score_logits_fn
+    from iterative_inference_segm_tpu_torch.models.registry import score_apply_fn, score_kwargs
     from iterative_inference_segm_tpu_torch.ops.metrics import confusion_matrix, metrics_from_confusion
     from iterative_inference_segm_tpu_torch.train.loop import TrainConfig
     from iterative_inference_segm_tpu_torch.train.train_dae import train_dae
@@ -137,9 +137,9 @@ def main(argv=None) -> int:
                                      depth=args.dae_depth, encoder=args.dae_encoder, **common)
     else:
         # one dispatch table for the logits apply and its per-step kwargs
-        score_logits = score_logits_fn(args.arch)
+        score_apply = score_apply_fn(args.arch)
         dae_kwargs = score_kwargs(args.arch, depth=args.dae_depth, encoder=args.dae_encoder)
-        res = grid_search_eps_k(fcn8_apply, score_logits, fcn_params, dae_params, norm(val), h_taps=h_taps,
+        res = grid_search_eps_k(fcn8_apply, score_apply, fcn_params, dae_params, norm(val), h_taps=h_taps,
                                 dae_kwargs=dae_kwargs, **common)
     print(f"  best eps={res['best_eps']} K={res['best_k']} val mIoU {res['best_miou']:.4f}"
           f" (K=0 val mIoU {res['miou'][0, 0]:.4f})", flush=True)
@@ -152,7 +152,7 @@ def main(argv=None) -> int:
         )
     else:
         refine = make_refiner(
-            fcn8_apply, score_logits, fcn_params, dae_params, eps=res["best_eps"],
+            fcn8_apply, score_apply, fcn_params, dae_params, eps=res["best_eps"],
             num_steps=res["best_k"], h_taps=h_taps, mode=args.mode, compute_dtype=cd, dae_kwargs=dae_kwargs,
         )
     cm0 = cmk = None

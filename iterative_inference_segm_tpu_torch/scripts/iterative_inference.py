@@ -147,7 +147,7 @@ def main(argv=None, *, mesh=None, device=None) -> int:
     from iterative_inference_segm_tpu_torch.data.config_datasets import DATASET_CONFIGS
     from iterative_inference_segm_tpu_torch.data.pipeline import normalize_image
     from iterative_inference_segm_tpu_torch.inference.fused import make_half_refiner
-    from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner, refine_with_trajectory
+    from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan, make_refiner
     from iterative_inference_segm_tpu_torch.inference.search import (
         grid_search_eps_k,
         grid_search_eps_k_half,
@@ -156,6 +156,7 @@ def main(argv=None, *, mesh=None, device=None) -> int:
     from iterative_inference_segm_tpu_torch.models.registry import (
         expected_meta,
         init_score_template,
+        score_apply_fn,
         score_kwargs,
         score_logits_fn,
     )
@@ -200,7 +201,7 @@ def main(argv=None, *, mesh=None, device=None) -> int:
         )
         check_npz_meta(args.dae_npz, expect, context=f"--dae-npz {args.dae_npz}")
         dae_params = load_npz(args.dae_npz, dae_params)
-    score_logits = score_logits_fn(args.arch)
+    score_apply, score_logits = score_apply_fn(args.arch), score_logits_fn(args.arch)
     dae_kwargs = score_kwargs(args.arch, depth=args.dae_depth, encoder=args.dae_encoder)
 
     def host_normalized(batches, norm_cfg):
@@ -277,7 +278,7 @@ def main(argv=None, *, mesh=None, device=None) -> int:
             )
         else:
             res = grid_search_eps_k(
-                fcn8_apply, score_logits, fcn_params, dae_params, val_batches,
+                fcn8_apply, score_apply, fcn_params, dae_params, val_batches,
                 renorm=args.renorm, dae_kwargs=dae_kwargs, **common,
             )
         eps, num_steps = res["best_eps"], res["best_k"]
@@ -316,7 +317,7 @@ def main(argv=None, *, mesh=None, device=None) -> int:
         )
     else:
         refine = make_refiner(
-            fcn8_apply, score_logits, fcn_params, dae_params, eps=eps, num_steps=num_steps,
+            fcn8_apply, score_apply, fcn_params, dae_params, eps=eps, num_steps=num_steps,
             h_taps=tuple(args.concat_h), mode=args.mode, renorm=args.renorm,
             compute_dtype=compute_dtype, dae_kwargs=dae_kwargs,
         )
@@ -337,9 +338,9 @@ def main(argv=None, *, mesh=None, device=None) -> int:
         with no_autograd(args.mode):
             y0, h = fcn8_apply(fcn_params, put_x(test_batches[0][0]), return_features=tuple(args.concat_h),
                                compute_dtype=compute_dtype)
-            traj = refine_with_trajectory(
+            traj = logits_refinement_scan(
                 lambda y: score_logits(dae_params, y, h, **dae_kwargs), y0,
-                eps=eps, num_steps=num_steps, mode=args.mode, renorm=args.renorm,
+                eps=eps, num_steps=num_steps, mode=args.mode, renorm=args.renorm, trajectory=True,
             )
         traj = traj.argmax(-1).cpu().numpy()  # (K+1, B, H, W)
         os.makedirs(args.dump_dir, exist_ok=True)

@@ -150,7 +150,7 @@ def build_pipeline(args):
     """``pipeline(fcn_params, dae_params, x) -> sum(argmax(y_K))`` on the
     params' device, for the configuration ``args`` (``parse_args``): the
     half engine's ``flagship_forward_fn`` (its rectification's labels are the
-    argmax) or the general engine's ``refinement_scan`` over the score
+    argmax) or the general engine's ``logits_refinement_scan`` over the score
     network's logits, each in its no-autograd context; or the phase-major
     engine's ``fused_refinement_scan``, its conditioning hoisted by
     ``precompute_bottleneck_h``."""
@@ -173,7 +173,7 @@ def build_pipeline(args):
 
         return pipeline
 
-    from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
+    from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
     from iterative_inference_segm_tpu_torch.models.registry import score_kwargs, score_logits_fn
 
@@ -189,7 +189,7 @@ def build_pipeline(args):
         with no_autograd(args.mode):
             y0, h = fcn8_apply(fcn_params, x, return_features=("pool4",), compute_dtype=compute,
                                probs_dtype=state)
-            y_k = refinement_scan(lambda y: score_logits(dae_params, y, h), y0.to(state), eps=0.1,
+            y_k = logits_refinement_scan(lambda y: score_logits(dae_params, y, h), y0.to(state), eps=0.1,
                                   num_steps=args.steps, mode=args.mode)
             return torch.sum(torch.argmax(y_k, dim=-1))
 

@@ -46,7 +46,7 @@ def variants(args, device):
     """``[(label, fn)]``, ``fn()`` a forward's on-device ``sum(argmax(y_K))``,
     over the tool's seeded params and input on ``device``."""
     from iterative_inference_segm_tpu_torch.inference.fused import fused_refinement_scan
-    from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
+    from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
     from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_core, dae_logits, init_dae
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
 
@@ -60,8 +60,9 @@ def variants(args, device):
         def fn():
             with torch.inference_mode():
                 y0, h = fcn8_apply(fcn, x, return_features=("pool4",), compute_dtype=cd)
-                yk = refinement_scan(lambda y: dae_logits(dae[tail], y, h, depth=args.depth, compute_dtype=cd),
-                                     y0, eps=0.1, num_steps=k, mode="score")
+                yk = logits_refinement_scan(
+                    lambda y: dae_logits(dae[tail], y, h, depth=args.depth, compute_dtype=cd), y0, eps=0.1,
+                    num_steps=k, mode="score")
                 return torch.sum(torch.argmax(yk, dim=-1))
         return fn
 

@@ -46,15 +46,15 @@ def parse_args(argv=None):
 def cases(fcn: dict, dae: dict, x: torch.Tensor, y0: torch.Tensor, h: dict, *, steps: int, compute_dtype):
     """``[(label, fn)]`` of one batch; ``fn()`` returns the row's map(s).
     ``y0``, ``h``: the FCN's f32 probabilities and pool4 tap of ``x``."""
-    from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
+    from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
     from iterative_inference_segm_tpu_torch.models.dae import dae_apply, dae_logits
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
 
     cd = compute_dtype
 
     def scan(y0_, h_):
-        return refinement_scan(lambda y: dae_logits(dae, y, h_, compute_dtype=cd), y0_, eps=0.1, num_steps=steps,
-                               mode="score")
+        return logits_refinement_scan(lambda y: dae_logits(dae, y, h_, compute_dtype=cd), y0_, eps=0.1,
+                                      num_steps=steps, mode="score")
 
     def full():
         y0_, h_ = fcn8_apply(fcn, x, return_features=("pool4",), compute_dtype=cd)

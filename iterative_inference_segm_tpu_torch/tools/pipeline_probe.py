@@ -68,7 +68,7 @@ def to_fc7(fcn: dict, x: torch.Tensor, compute_dtype) -> torch.Tensor:
 def pipeline_cases(fcn: dict, dae: dict, x: torch.Tensor, *, depth: int, compute_dtype):
     """``[(label, fn)]``: the backbone, FCN + decoder, the pipeline at K = 0,
     1, 5; ``fn()`` returns the row's maps."""
-    from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan
+    from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan
     from iterative_inference_segm_tpu_torch.models.dae import dae_logits
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
 
@@ -81,8 +81,8 @@ def pipeline_cases(fcn: dict, dae: dict, x: torch.Tensor, *, depth: int, compute
     def steps(k):
         def fn():
             y0, h = fcn8_apply(fcn, x, return_features=("pool4",), compute_dtype=cd)
-            return (refinement_scan(lambda y: dae_logits(dae, y, h, depth=depth, compute_dtype=cd), y0, eps=EPS,
-                                    num_steps=k, mode="score"),)
+            return (logits_refinement_scan(lambda y: dae_logits(dae, y, h, depth=depth, compute_dtype=cd), y0,
+                                           eps=EPS, num_steps=k, mode="score"),)
         return fn
 
     return [

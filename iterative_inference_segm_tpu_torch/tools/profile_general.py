@@ -122,7 +122,7 @@ def main() -> int:
         return 1
 
     from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner
-    from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_logits, init_dae
+    from iterative_inference_segm_tpu_torch.models.dae import DAE_H_CHANNELS, dae_apply, init_dae
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply, init_fcn8
 
     dev = torch.device("cuda", 0)
@@ -133,7 +133,7 @@ def main() -> int:
     print(f"{torch.cuda.get_device_name(0)}: general engine, bf16, batch {BATCH}, K={K_STEPS}, "
           f"eps 0.1, 360x480, {ITERS} forwards per reading", flush=True)
     for mode, steps in (("fcn only", 0), ("score", K_STEPS), ("energy", K_STEPS)):
-        refine = make_refiner(fcn8_apply, dae_logits, fcn, dae, eps=0.1, num_steps=steps,
+        refine = make_refiner(fcn8_apply, dae_apply, fcn, dae, eps=0.1, num_steps=steps,
                               mode="score" if steps == 0 else mode, compute_dtype=torch.bfloat16,
                               dae_kwargs={"depth": 4})
         r = profile(refine, x)

@@ -144,14 +144,14 @@ def record_main_path(dev, fcn, flag_dae, gen_dae, hw=(360, 480)) -> dict:
     rectification, and the general engine once; anything else raises."""
     from iterative_inference_segm_tpu_torch.inference.fused import flagship_forward_fn
     from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner
-    from iterative_inference_segm_tpu_torch.models.dae import dae_logits
+    from iterative_inference_segm_tpu_torch.models.dae import dae_apply
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
 
     x = torch.randn((1, *hw, 3), generator=torch.Generator().manual_seed(2)).to(dev)
     with torch.inference_mode():
         flag = layouts_of(lambda: flagship_forward_fn(num_steps=1, eps=EPS, depth=3, compute_dtype=torch.bfloat16,
                                                       with_labels=True)(fcn, flag_dae, x))
-        gen = layouts_of(lambda: make_refiner(fcn8_apply, dae_logits, fcn, gen_dae, eps=EPS, num_steps=1,
+        gen = layouts_of(lambda: make_refiner(fcn8_apply, dae_apply, fcn, gen_dae, eps=EPS, num_steps=1,
                                               compute_dtype=torch.bfloat16, dae_kwargs={"depth": 4})(x))
     steps = [r for r in flag if not r["labels"]]
     rects = [r for r in flag if r["labels"]]

@@ -185,10 +185,13 @@ def _whole(part, place):
     return part.detach().cpu()
 
 
-def save_checkpoint(directory: str | os.PathLike, step: int, state: dict, *, shardings=None) -> None:
+def save_checkpoint(directory: str | os.PathLike, step: int, state: dict, *, wait: bool = True,
+                    shardings=None) -> None:
     """Write ``state`` (tensors, numbers, lists and dicts) at
     ``directory/<step>/state.pt``, synchronously; the file appears whole
-    (written beside it, then renamed) or not at all.
+    (written beside it, then renamed) or not at all. ``wait`` is JAX's
+    (orbax's background save) and is accepted for its call: the write is
+    synchronous either way, so nothing is ever pending.
 
     ``shardings``: a tree of ``parallel.sharding.Placement`` matching
     ``state`` (``parallel.tp.tp_shardings``, or replicated ones): every rank
@@ -200,7 +203,7 @@ def save_checkpoint(directory: str | os.PathLike, step: int, state: dict, *, sha
 
         state = _tree_map(_whole, state, shardings)
         if dist.get_rank() == 0:
-            save_checkpoint(directory, step, state)
+            save_checkpoint(directory, step, state, wait=wait)
         dist.barrier()
         return
     path = Path(directory) / str(step)
@@ -215,10 +218,40 @@ def wait_for_checkpoints() -> None:
     trainers read as the JAX package's do."""
 
 
-def restore_checkpoint(directory: str | os.PathLike, step: int) -> dict:
-    """Read back what ``save_checkpoint`` wrote at ``step``, on the CPU."""
-    return torch.load(Path(directory) / str(step) / _STATE_FILE, map_location="cpu",
-                      weights_only=True)
+def _like(ref, got, path: str = ""):
+    """``got`` in ``ref``'s tree structure: dict keys and sequence lengths
+    must match, each tensor leaf its shape, and it takes ``ref``'s dtype and
+    device; a leaf that is not a tensor in ``ref`` is returned as read."""
+    if isinstance(ref, dict):
+        if not isinstance(got, dict) or set(got) != set(ref):
+            have = sorted(map(str, got)) if isinstance(got, dict) else type(got).__name__
+            raise ValueError(f"checkpoint {path or 'state'}: keys {have} do not match the template's "
+                             f"{sorted(map(str, ref))}")
+        return {k: _like(ref[k], got[k], f"{path}/{k}") for k in ref}
+    if isinstance(ref, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(ref):
+            raise ValueError(f"checkpoint {path or 'state'}: {type(got).__name__} does not match the template's "
+                             f"{len(ref)} entries")
+        return type(ref)(_like(r, g, f"{path}/{i}") for i, (r, g) in enumerate(zip(ref, got)))
+    if isinstance(ref, torch.Tensor):
+        if not isinstance(got, torch.Tensor) or tuple(got.shape) != tuple(ref.shape):
+            shape = tuple(got.shape) if isinstance(got, torch.Tensor) else type(got).__name__
+            raise ValueError(f"checkpoint {path or 'state'}: {shape} does not match the template's "
+                             f"{tuple(ref.shape)}")
+        return got.to(device=ref.device, dtype=ref.dtype)
+    return got
+
+
+def restore_checkpoint(directory: str | os.PathLike, step: int, template=None):
+    """Read back what ``save_checkpoint`` wrote at ``step``. Without a
+    ``template``, as it was written, on the CPU. With one (JAX's third
+    argument: a tree of the same structure, such as the state a trainer
+    holds), the result has the template's structure, and each tensor its
+    dtype and device; a key, a length or a shape that differs raises a
+    ``ValueError``."""
+    state = torch.load(Path(directory) / str(step) / _STATE_FILE, map_location="cpu",
+                       weights_only=True)
+    return state if template is None else _like(template, state)
 
 
 def restore_checkpoint_sharded(directory: str | os.PathLike, step: int, template, shardings):

@@ -15,6 +15,7 @@ engine, and its main path's launches over stand-ins for the two twins."""
 
 import importlib
 import json
+import pathlib
 
 import pytest
 
@@ -789,51 +790,57 @@ def _probe_line(name, **kw):
     return json.dumps(rec)
 
 
-@pytest.mark.parametrize("spoil", [None, "probe", "device", "ms", "value", "per_img", "check", "derived"])
+@pytest.mark.parametrize("spoil", [None, "probe", "device", "ms", "value", "per_img", "check", "derived", "report"])
 def test_check_probe_lines_takes_only_stamped_finite_rows(spoil):
     """Phase 32's check of a twin's lines: each its probe's and stamped with
     the card; a timed row's ms positive and its value finite; a derived row
-    (a delta may be negative) finite; a check within its limit."""
+    (a delta may be negative) finite; a check within its limit, one that
+    only reports (``"asserted": false``) finite."""
     lines = [_probe_line("perf_probe"), _probe_line("perf_probe", label="delta", derived=True, ms=-0.5),
-             _probe_line("perf_probe", label="equivalence", check=True, max_abs_err=1e-3, limit=2e-3)]
+             _probe_line("perf_probe", label="equivalence", check=True, max_abs_err=1e-3, limit=2e-3),
+             _probe_line("perf_probe", label="equality C", check=True, max_abs_err=0.5, limit=0.0, asserted=False)]
     bad = {"probe": _probe_line("pool_probe"), "device": _probe_line("perf_probe", device="cpu"),
            "ms": _probe_line("perf_probe", ms=0.0, ms_per_img=0.0),
            "value": _probe_line("perf_probe", value=float("nan")),
            "per_img": _probe_line("perf_probe", ms_per_img=2.0),
            "check": _probe_line("perf_probe", check=True, max_abs_err=3e-3, limit=2e-3),
-           "derived": _probe_line("perf_probe", derived=True, ms=float("inf"))}
+           "derived": _probe_line("perf_probe", derived=True, ms=float("inf")),
+           "report": _probe_line("perf_probe", check=True, max_abs_err=float("nan"), limit=0.0, asserted=False)}
     if spoil:
         with pytest.raises(AssertionError, match="perf_probe line"):
             chip_smoke.check_probe_lines("perf_probe", lines + [bad[spoil]], SMI)
         return
-    assert len(chip_smoke.check_probe_lines("perf_probe", lines, SMI)) == 3
+    assert len(chip_smoke.check_probe_lines("perf_probe", lines, SMI)) == 4
 
 
 def _fake_probes(spoil=None):
-    """Stand-ins for the eleven twins: each prints a row and launches
+    """Stand-ins for the eighteen twins: each prints a row and launches
     refine_tail and septail_step as PROBE_RUNS says its rows do."""
     import types
 
     fakes = []
-    for module, argv, k3, s1 in chip_smoke.PROBE_RUNS:
+    for module, argv, k3, s1, k3_once in chip_smoke.PROBE_RUNS:
         name = chip_smoke.probe_name(module)
 
-        def main(args, name=name, k3=k3, s1=s1):
+        def main(args, name=name, k3=k3, s1=s1, k3_once=k3_once):
             assert args[-4:] == ["--iters", str(chip_smoke.PROBE_ITERS), "--repeats", "1"]
-            chip_smoke.refine_tail.launches += k3 * chip_smoke.PROBE_CALLS + (spoil == name)
+            chip_smoke.refine_tail.launches += k3 * chip_smoke.PROBE_CALLS + k3_once + (spoil == name)
             chip_smoke.septail_step.launches += s1 * chip_smoke.PROBE_CALLS
             labels = {"half_probe": "flagship d3 (32,64,128): FULL pipeline K=5", "fcn_block_probe": "delta fc6+fc7"}
             print(_probe_line(name, label=labels.get(name, "row"), ms=150.0, ms_per_img=75.0))
             return 0
 
-        fakes.append((types.SimpleNamespace(__name__=module.__name__, main=main), argv, k3, s1))
+        fakes.append((types.SimpleNamespace(__name__=module.__name__, main=main), argv, k3, s1, k3_once))
     return fakes
 
 
-@pytest.mark.parametrize("spoil", [None, "perf_probe", "half_probe"])
+@pytest.mark.parametrize("spoil", [None, "perf_probe", "half_probe", "scan_variants_probe", "tailfold_probe"])
 def test_probe_main_path_counts_the_launches_each_twin_implies(monkeypatch, capsys, spoil):
     """Phase 32's main path over stand-ins for the twins: K3 launched as
-    perf_probe's, pipeline_probe's and half_probe's rows imply, S1 as
+    perf_probe's, pipeline_probe's, half_probe's, tailfold_probe's and
+    scan_variants_probe's rows imply (the last's four K = 5 pipelines, its
+    graph replays counted, and its two captured rows each held once to a
+    replay and an uncaptured loop; tailfold_probe's f32 check once), S1 as
     fused_probe's; a wrong count fails the run."""
     monkeypatch.setattr(chip_smoke, "PROBE_RUNS", _fake_probes(spoil))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
@@ -844,12 +851,13 @@ def test_probe_main_path_counts_the_launches_each_twin_implies(monkeypatch, caps
         with pytest.raises(AssertionError, match=f"{spoil} launched"):
             chip_smoke.probe_main_path(SMI)
         return
-    recs, k3, s1 = chip_smoke.probe_main_path(SMI)
+    recs, k3, s1, walls = chip_smoke.probe_main_path(SMI)
     k, calls = chip_smoke.K_STEPS, chip_smoke.PROBE_CALLS
-    assert k3 == calls * (2 * k * len(chip_smoke.PROBE_BATCHES) + (1 + k + 2) + 4 * (k + 1))
-    assert s1 == calls and len(recs) == 11
+    assert k3 == calls * (2 * k * len(chip_smoke.PROBE_BATCHES) + (1 + k + 2) + 4 * (k + 1) + 1 + 4 * k) + 1 + 4 * k
+    assert s1 == calls and len(recs) == 18 and set(walls) == set(recs)
+    assert {chip_smoke.probe_name(m) for m in chip_smoke.LATER_PROBES} <= set(recs)
     assert chip_smoke.PROBE_RUNS[0][1] == ["--batches", 4, 8, 16, 32, 128]
-    assert capsys.readouterr().out.count("lines in") == 11
+    assert capsys.readouterr().out.count("lines in") == 18
 
 
 def test_probe_kernel_checks_hold_the_rows_and_a_spoiled_kernel_fails(monkeypatch, capsys):
@@ -866,11 +874,60 @@ def test_probe_kernel_checks_hold_the_rows_and_a_spoiled_kernel_fails(monkeypatc
     worst = chip_smoke.probe_kernel_checks("cpu")
     assert worst["refine_tail"] <= chip_smoke.BF16_TOL and worst["septail_step"] <= chip_smoke.BF16_TOL
     out = capsys.readouterr().out
-    assert out.count("against its plain version") == 3 and out.count("differing only at near-ties True") == 6
+    assert out.count("against its plain version") == 6 and out.count("differing only at near-ties True") == 12
+    assert out.count("scan_variants_probe pipeline step") == 4 and out.count("tailfold_probe") == 2
     real = rt.refine_tail_reference  # what the wrapper runs on a CPU tensor; chip_smoke holds its own name
     monkeypatch.setattr(rt, "refine_tail_reference", lambda *a, **k: real(*a, **k) + 2.0**-6)
     with pytest.raises(AssertionError, match="pipeline_probe 'tail: deconv"):
         chip_smoke.probe_kernel_checks("cpu")
+
+
+def test_probe_conv_traces_print_each_rows_top_kernels(monkeypatch, capsys):
+    """Phase 32's traces of tail2_probe's three conv rows and tailfold_probe's
+    v1 and v2 steps, over a stand-in for the profiler at a tiny size: each
+    row runs, and its top three kernels are printed."""
+    monkeypatch.setattr(chip_smoke, "H", 16)
+    monkeypatch.setattr(chip_smoke, "W", 24)
+    monkeypatch.setattr(chip_smoke.pipeline_probe, "parse_args", lambda argv: type("A", (), {"batch": 1}))
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    shapes = []
+
+    def fake_profile(refine, x, iters):
+        shapes.append(tuple(refine(x)[0].shape))
+        return {"event_ms": 1.0, "device_ms": 0.9, "top": [(f"kernel{i}", 0.3 - 0.1 * i, 0.3) for i in range(4)]}
+
+    monkeypatch.setattr(chip_smoke.profile_tool, "profile", fake_profile)
+    tops = chip_smoke.probe_conv_traces("cpu")
+    assert list(tops) == [*(f"tail2_probe '{label}'" for label in chip_smoke.tail2_probe.CONV_LABELS),
+                          "tailfold_probe step v1", "tailfold_probe step v2"]
+    assert shapes == [(1, 16, 24, 11), (1, 11, 16, 24), (1, 11, 16, 24), (1, 8, 12, 11), (1, 8, 12, 11)]
+    out = capsys.readouterr().out
+    assert out.count("top kernels: kernel0 0.300 ms (30.0%); kernel1") == 5 and "kernel3" not in out
+
+
+@pytest.mark.parametrize("rc", [0, 1])
+def test_fresh_conv_traces_relay_the_lines_and_a_failure_raises(monkeypatch, capsys, rc):
+    """The conv traces run in a fresh process (``python -c`` importing
+    chip_smoke from its own directory): its lines are printed here; a
+    non-zero exit raises with its stderr."""
+    import types
+
+    seen = []
+
+    def fake_run(cmd, cwd, **kw):
+        seen.append((cmd[1:], cwd))
+        return types.SimpleNamespace(returncode=rc, stdout="[probes] a trace line\n", stderr="boom")
+
+    monkeypatch.setattr(chip_smoke.subprocess, "run", fake_run)
+    if rc:
+        with pytest.raises(AssertionError, match="conv traces failed: boom"):
+            chip_smoke.fresh_conv_traces()
+        return
+    assert chip_smoke.fresh_conv_traces() >= 0.0
+    assert "[probes] a trace line" in capsys.readouterr().out
+    (args, cwd), = seen
+    assert args[0] == "-c" and "chip_smoke.probe_conv_traces" in args[1]
+    assert (pathlib.Path(cwd) / "chip_smoke.py").is_file()
 
 
 @pytest.mark.parametrize("spoil", [None, "no_fc6"])

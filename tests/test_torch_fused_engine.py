@@ -35,7 +35,7 @@ from iterative_inference_segm_tpu.inference import fused as jfused  # noqa: E402
 from iterative_inference_segm_tpu.models import dae as jdae  # noqa: E402
 from iterative_inference_segm_tpu.models import fcn8 as jfcn8  # noqa: E402
 from iterative_inference_segm_tpu_torch.inference import fused as tfused  # noqa: E402
-from iterative_inference_segm_tpu_torch.inference.iterative import refinement_scan  # noqa: E402
+from iterative_inference_segm_tpu_torch.inference.iterative import logits_refinement_scan  # noqa: E402
 from iterative_inference_segm_tpu_torch.models.dae import dae_core, dae_logits  # noqa: E402
 from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply  # noqa: E402
 from iterative_inference_segm_tpu_torch.ops.septail_step import septail_step, septail_step_reference  # noqa: E402
@@ -163,8 +163,8 @@ def test_fused_scan_matches_the_ports_general_engine_with_the_sep_tail(dae, scan
     y0, h = scan_inputs
     th = {"pool4": torch.from_numpy(h)}
     with torch.inference_mode():
-        want = refinement_scan(lambda y: dae_logits(td, y, th, depth=3), torch.from_numpy(y0), eps=0.3,
-                               num_steps=3)
+        want = logits_refinement_scan(lambda y: dae_logits(td, y, th, depth=3), torch.from_numpy(y0), eps=0.3,
+                                      num_steps=3)
     got = _port_scan(td, y0, h, 0.3, 3)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **SCAN)
     assert float((want - torch.from_numpy(y0)).abs().max()) > 1e-3  # the steps moved the map

@@ -172,5 +172,6 @@ print(" ".join(mods))
     assert len(walked) >= 34  # every module was walked, these among them:
     for mod in ("inference.iterative", "inference.search", "ops.vpu_probe", "tools.vpu_probe",
                 "tools.profile_general", "tools.tail_bench", "scripts.iterative_inference", "parallel.spatial",
-                "entry"):
+                "entry", "tools.tailfold_probe", "tools.tail2_probe", "tools.scan_variants_probe", "tools.int8_probe",
+                "tools.aug_probe", "tools.aug_order_probe", "tools.aug_step_probe"):
         assert "iterative_inference_segm_tpu_torch." + mod in walked, mod

@@ -210,7 +210,7 @@ def test_general_engine_matches_jax(fcn, arch, tied, depth, mode):
     kw = dict(eps=EPS, num_steps=3, mode=mode)
     want = np.asarray(jit_.refinement_scan(jfn, fcn["y0"], **kw))
     with tfused.no_autograd(mode):
-        got = tit.refinement_scan(tfn, fcn["ty0"], **kw)
+        got = tit.logits_refinement_scan(tfn, fcn["ty0"], **kw)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert np.abs(want - np.asarray(fcn["y0"])).max() > 1e-3  # the steps moved y
 

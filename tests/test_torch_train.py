@@ -191,6 +191,43 @@ def test_experiment_name_and_metric_logger_match_jax(tmp_path):
     assert recs == jexp.MetricLogger(tmp_path / "run").read()
 
 
+def test_save_checkpoint_takes_jaxs_wait(tmp_path):
+    """``wait`` (JAX's orbax background save) is accepted either way; the
+    file is whole when the call returns."""
+    state = {"params": {"a": {"w": torch.arange(4.0)}}, "step": 1}
+    for step, wait in ((1, False), (2, True)):
+        tckpt.save_checkpoint(tmp_path, step, state, wait=wait)
+        assert tckpt.latest_step(tmp_path) == step
+        assert torch.equal(tckpt.restore_checkpoint(tmp_path, step)["params"]["a"]["w"], state["params"]["a"]["w"])
+
+
+def test_restore_checkpoint_takes_jaxs_template(tmp_path):
+    """``restore_checkpoint(dir, step, template)`` as JAX calls it: the
+    template's structure, each tensor's dtype and device (here the meta
+    device), a non-tensor leaf as written; a key or a shape that differs
+    raises. Without a template, the state as written."""
+    state = {"params": {"a": {"w": torch.arange(6.0).reshape(2, 3), "b": torch.ones(3)}},
+             "opt": [torch.zeros(2), 7], "epoch": 4}
+    tckpt.save_checkpoint(tmp_path, 0, state)
+    template = {"params": {"a": {"w": torch.zeros((2, 3), dtype=torch.bfloat16),
+                                 "b": torch.zeros(3, device="meta")}},
+                "opt": [torch.zeros(2, dtype=torch.float64), 0], "epoch": 0}
+    back = tckpt.restore_checkpoint(tmp_path, 0, template)
+    assert back["params"]["a"]["w"].dtype == torch.bfloat16 and back["params"]["a"]["b"].is_meta
+    assert torch.equal(back["params"]["a"]["w"], state["params"]["a"]["w"].bfloat16())
+    assert isinstance(back["opt"], list) and back["opt"][0].dtype == torch.float64 and back["opt"][1] == 7
+    assert back["epoch"] == 4
+    plain = tckpt.restore_checkpoint(tmp_path, 0)
+    assert plain["params"]["a"]["w"].dtype == torch.float32 and plain["epoch"] == 4
+    bad_key = {**template, "params": {"a": {"w": template["params"]["a"]["w"]}}}
+    with pytest.raises(ValueError, match="keys"):
+        tckpt.restore_checkpoint(tmp_path, 0, bad_key)
+    bad_shape = {**template, "opt": [torch.zeros(3), 0]}
+    with pytest.raises(ValueError, match=r"\(2,\) does not match the template's \(3,\)"):
+        tckpt.restore_checkpoint(tmp_path, 0, bad_shape)
+
+
+
 @pytest.mark.parametrize("widths", [None, (8, 16, 32)])
 def test_registry_checkpoint_meta_matches_jax(widths):
     kw = dict(h_taps=("pool4",), depth=3, stem_pool=1, tail="full", widths=widths, encoder="stride")

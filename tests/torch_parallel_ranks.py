@@ -577,7 +577,7 @@ def spatial_forwards(mesh, device, jfcn, jdae_g, jdae_h, x, x40):
     from iterative_inference_segm_tpu_torch.inference.fused import make_half_refiner
     from iterative_inference_segm_tpu_torch.inference.iterative import make_refiner
     from iterative_inference_segm_tpu_torch.models.fcn8 import fcn8_apply
-    from iterative_inference_segm_tpu_torch.models.registry import score_logits_fn
+    from iterative_inference_segm_tpu_torch.models.registry import score_apply_fn
     from iterative_inference_segm_tpu_torch.parallel.mesh import axis_group
     from iterative_inference_segm_tpu_torch.parallel.spatial import rows_of
 
@@ -597,7 +597,7 @@ def spatial_forwards(mesh, device, jfcn, jdae_g, jdae_h, x, x40):
             ("general40", (2, 2), x40, make_refiner, dae_g, dict(general, num_steps=2)),
             ("half14", (1, 4), x, make_half_refiner, dae_h, half)):
         mesh = _space_mesh(shape)
-        args = (fcn8_apply, score_logits_fn("dae"), fcn, dae) if make is make_refiner else (fcn8_apply, fcn, dae)
+        args = (fcn8_apply, score_apply_fn("dae"), fcn, dae) if make is make_refiner else (fcn8_apply, fcn, dae)
         xs = sharding.shard_batch(mesh, torch.from_numpy(images), spatial_axis="space")
         y0, yk = make(*args, space_group=axis_group(mesh, "space"), **kw)(xs)
         out[name] = {"y0": _whole(mesh, y0), "yk": _whole(mesh, yk)}

@@ -49,6 +49,23 @@ def jax_params(stem_pool=1, depth=3, tail="full", encoder_seed=1, fcn_scale=0.3,
     return fcn, dae
 
 
+def score_net(arch):
+    """(JAX params, taps, apply kwargs) of a score network: the stem-0
+    depth-4 DAE of ``jax_params``, the mirror DAE (widths 8..64, the pool4
+    tap) or the context module (the input tap), their biases random so that
+    a dropped one shows."""
+    from iterative_inference_segm_tpu.models import registry as jreg
+
+    if arch == "dae":
+        return jax_params(stem_pool=0, depth=4)[1], ("pool4",), {"depth": 4}
+    taps = ("input",) if arch == "contextmod" else ("pool4",)
+    p = init_score_template(arch, jax.random.PRNGKey(5), n_classes=C, h_taps=taps, depth=4, widths=(8, 16, 32, 64))
+    rng = np.random.default_rng(1)
+    p = {k: {kk: jnp.asarray(rng.normal(size=v.shape).astype(np.float32) * 0.1) if kk == "b" else v
+             for kk, v in lv.items()} for k, lv in p.items()}
+    return p, taps, jreg.score_kwargs(arch, depth=4)
+
+
 def both(tree):
     return tree, params_from_jax(tree)
 
