@@ -23,6 +23,10 @@ every rank returns them whole. ``pp_mesh`` serves through the stage
 pipeline (``parallel.pp.make_pp_flagship``; a 'stage' axis of 2 or 3, and
 an optional 'data' axis for DP x PP), ``pp_microbatches`` in flight a
 chunk.
+
+Under a profiler, ``predict`` records its stages as ``utils.profiling``
+spans (the copy in, FCN-8, the refinement, the copy out, the gathering; the
+pipeline path records the copies and the gathering alone).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from iterative_inference_segm_tpu_torch.models.registry import (
     validate_arch,
 )
 from iterative_inference_segm_tpu_torch.utils.checkpoint import check_npz_meta, load_npz
+from iterative_inference_segm_tpu_torch.utils.profiling import span
 
 
 class Predictor:
@@ -208,53 +213,59 @@ class Predictor:
 
     def _predict_local(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """One chunk on this rank -> (labels int32, probs at the state dtype)."""
-        if self._normalize:
-            x = normalize_image(x, self.cfg, input_scale=self._input_scale)
         # bf16 probs only when the half engine refines at bf16; the general
         # engine and an unrefined Predictor start from the f32 softmax
         half = self._refine and self._engine == "half"
-        y0, h = fcn8_apply(
-            self._fcn, x, return_features=self._h_taps if self._refine else (),
-            compute_dtype=self._compute_dtype,
-            probs_dtype=self._compute_dtype if half else torch.float32,
-        )
-        if not self._refine:
-            return torch.argmax(y0, dim=-1).to(torch.int32), y0
-        if not half:
-            y = logits_refinement_scan(
-                lambda yy: self._score_logits(
-                    self._dae, yy, h, compute_dtype=self._compute_dtype, **self._dae_kwargs
-                ),
-                y0, eps=self._eps, num_steps=self._num_steps, mode=self._mode,
+        with span("predict.fcn8"):
+            if self._normalize:
+                x = normalize_image(x, self.cfg, input_scale=self._input_scale)
+            y0, h = fcn8_apply(
+                self._fcn, x, return_features=self._h_taps if self._refine else (),
+                compute_dtype=self._compute_dtype,
+                probs_dtype=self._compute_dtype if half else torch.float32,
             )
-            return torch.argmax(y, dim=-1).to(torch.int32), y
-        y, labels = halfres_refine(
-            self._dae, y0, h, (int(x.shape[1]), int(x.shape[2])),
-            eps=self._eps, num_steps=self._num_steps, depth=self._depth,
-            compute_dtype=self._compute_dtype, encoder=self._encoder, mode=self._mode,
-            with_labels=True,
-        )
-        return labels, y
+            if not self._refine:
+                return torch.argmax(y0, dim=-1).to(torch.int32), y0
+        with span("predict.refine"):
+            if not half:
+                y = logits_refinement_scan(
+                    lambda yy: self._score_logits(
+                        self._dae, yy, h, compute_dtype=self._compute_dtype, **self._dae_kwargs
+                    ),
+                    y0, eps=self._eps, num_steps=self._num_steps, mode=self._mode,
+                )
+                return torch.argmax(y, dim=-1).to(torch.int32), y
+            y, labels = halfres_refine(
+                self._dae, y0, h, (int(x.shape[1]), int(x.shape[2])),
+                eps=self._eps, num_steps=self._num_steps, depth=self._depth,
+                compute_dtype=self._compute_dtype, encoder=self._encoder, mode=self._mode,
+                with_labels=True,
+            )
+            return labels, y
 
     def predict(self, images: np.ndarray, *, return_probs: bool = False):
         """images: (N, H, W, C) float in [0, 1] (or byte range with
         ``input_scale=255.0``). Returns (N, H, W) int32 labels [, (N, H, W,
         n_classes) float32 probs], as numpy arrays."""
-        images = np.asarray(images, np.float32)
+        with span("predict.stage_in"):
+            images = np.asarray(images, np.float32)
         labels_out, probs_out = [], []
         with no_autograd(self._mode):
             for start in range(0, images.shape[0], self.batch_size):
-                chunk = images[start : start + self.batch_size]
-                got = chunk.shape[0]
-                if got < self.batch_size:
-                    pad = np.zeros((self.batch_size - got, *chunk.shape[1:]), np.float32)
-                    chunk = np.concatenate([chunk, pad])
-                x = torch.from_numpy(chunk).to(self.device)
+                with span("predict.stage_in"):
+                    chunk = images[start : start + self.batch_size]
+                    got = chunk.shape[0]
+                    if got < self.batch_size:
+                        pad = np.zeros((self.batch_size - got, *chunk.shape[1:]), np.float32)
+                        chunk = np.concatenate([chunk, pad])
+                    x = torch.from_numpy(chunk).to(self.device)
                 labels, probs = self._predict(x)
-                labels_out.append(labels[:got].cpu().numpy())
-                if return_probs:
-                    probs_out.append(probs[:got].float().cpu().numpy())
-        labels = np.concatenate(labels_out)
-        if return_probs:
-            return labels, np.concatenate(probs_out)
+                with span("predict.stage_out"):
+                    labels_out.append(labels[:got].cpu().numpy())
+                    if return_probs:
+                        probs_out.append(probs[:got].float().cpu().numpy())
+        with span("predict.gather"):
+            labels = np.concatenate(labels_out)
+            if return_probs:
+                return labels, np.concatenate(probs_out)
         return labels

@@ -1,20 +1,42 @@
-"""Profiling and throughput instrumentation.
+"""Profiling instrumentation.
 
-The port of ``iterative_inference_segm_tpu.utils.profiling``: ``trace``
-captures a ``torch.profiler`` trace (CPU, and CUDA where there is a card)
-around a region and writes it into ``logdir`` as a Chrome trace;
-``ThroughputMeter`` times items/s between two synchronization points.
+``trace`` captures a ``torch.profiler`` trace (CPU, and CUDA where there is
+a card) around a region and writes it into ``logdir`` as a Chrome trace.
+
+``span`` marks a named host range inside the program. It is recorded only
+while a ``torch.profiler`` session is active, as a ``cpu_op`` on the
+profiler's clock beside the device's events; with no session it records
+nothing. A ``cpu_op`` stays on the host's timeline: the profiler mirrors
+only ``record_function``'s user annotations onto the device's, where a span
+would read as device time. The spans, all in ``inference/predictor.py``
+``Predictor.predict``, siblings within a call, and the benchmark's metric
+each feeds (``benchmark/metrics/<metric>.py``: the span's time less the
+device-busy time inside it, a call):
+
+- ``predict.stage_in``: the request's conversion to float32, then per
+  chunk the slice, the zero padding and the copy to the device ->
+  ``stage_in_host_ms_per_call``;
+- ``predict.fcn8``: per chunk, the normalization and FCN-8 ->
+  ``fcn_host_ms_per_call``;
+- ``predict.refine``: per chunk, the refinement engine and its label step
+  -> ``refine_host_ms_per_call``;
+- ``predict.stage_out``: per chunk, the wait for the device and the copy of
+  the labels (and probabilities) to the host -> ``stage_out_host_ms_per_call``;
+- ``predict.gather``: the concatenation of the chunks' outputs ->
+  ``gather_host_ms_per_call``.
 """
 
 from __future__ import annotations
 
 import contextlib
-import time
 from pathlib import Path
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -38,48 +60,13 @@ def trace(logdir: str, *, enabled: bool = True):
     prof.export_chrome_trace(str(Path(logdir) / TRACE_FILE))
 
 
-def _leaves(x):
-    if isinstance(x, (tuple, list)):
-        for v in x:
-            yield from _leaves(v)
-    elif isinstance(x, dict):
-        for v in x.values():
-            yield from _leaves(v)
-    else:
-        yield x
+def span(name: str):
+    """A context manager that records the block as the host range ``name``
+    (a ``cpu_op``) while a profiler session is active, and does nothing
+    otherwise.
 
-
-def sync(x) -> None:
-    """Wait for the work that produces ``x`` (a tensor or a tree of them):
-    ``torch.cuda.synchronize`` on each CUDA device among its leaves; a
-    no-op on the CPU, where the work is done when the call returns."""
-    devices = {t.device for t in _leaves(x) if isinstance(t, torch.Tensor) and t.is_cuda}
-    for d in devices:
-        torch.cuda.synchronize(d)
-
-
-class ThroughputMeter:
-    """Streaming items/sec with device synchronization at measure points."""
-
-    def __init__(self):
-        self.reset()
-
-    def reset(self) -> None:
-        self._items = 0
-        self._t0 = None
-
-    def start(self, sync_on=None) -> None:
-        if sync_on is not None:
-            sync(sync_on)
-        self._t0 = time.perf_counter()
-        self._items = 0
-
-    def add(self, n: int) -> None:
-        self._items += n
-
-    def stop(self, sync_on=None) -> float:
-        """Returns items/sec since start()."""
-        if sync_on is not None:
-            sync(sync_on)
-        dt = time.perf_counter() - self._t0
-        return self._items / dt if dt > 0 else float("inf")
+    Usage::
+        with profiling.span("predict.gather"):
+            labels = np.concatenate(chunks)
+    """
+    return _RecordFunctionFast(name) if _autograd_profiler._is_profiler_enabled else _OFF

@@ -5,11 +5,10 @@ its flat and conv forms, with and without the deconv flip, the positional
 Lasagne npz in full and VGG-only, the mirror DAE tied and untied) bit-equal
 to the JAX import carried across by ``params_from_jax``, the same refusals;
 the colorized labels and PNGs equal; and the profiling surface on the CPU
-(``sync``, the meter, a trace that writes a Chrome trace, a disabled trace).
+(a trace that writes a Chrome trace, a disabled trace).
 """
 
 import json
-import time
 
 import numpy as np
 import pytest
@@ -196,30 +195,10 @@ def test_colorize_matches_jax(name, tmp_path):
 # ---------------------------------------------------------------- profiling
 
 
-def test_sync_takes_tensors_and_trees_on_the_cpu():
-    x = torch.arange(8.0) * 2.0
-    profiling.sync(x)
-    profiling.sync({"a": x, "b": (x + 1, [x])})
-    profiling.sync(np.ones(3))  # not a tensor: nothing to wait for
-
-
-def test_throughput_meter_rates():
-    m = profiling.ThroughputMeter()
-    x = torch.ones((4, 4))
-    m.start(sync_on=x)
-    m.add(10)
-    time.sleep(0.05)
-    rate = m.stop(sync_on=x)
-    assert 0 < rate < 10 / 0.05 + 1e-9  # at least the sleep elapsed
-    m.reset()
-    m.start()
-    assert m.stop() == 0.0  # zero items
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     logdir = tmp_path / "trace"
     with profiling.trace(str(logdir)):
-        profiling.sync(torch.ones((16, 16)) @ torch.ones((16, 16)))
+        torch.ones((16, 16)) @ torch.ones((16, 16))
     events = json.loads((logdir / profiling.TRACE_FILE).read_text())["traceEvents"]
     assert any("mm" in str(e.get("name", "")) for e in events)
 
