@@ -24,14 +24,23 @@ pipeline (``parallel.pp.make_pp_flagship``; a 'stage' axis of 2 or 3, and
 an optional 'data' axis for DP x PP), ``pp_microbatches`` in flight a
 chunk.
 
+Every transfer of ``predict`` goes through host buffers the ``Predictor``
+keeps across calls, page-locked on a card and plain tensors on the CPU: the
+frames through one staging buffer of a chunk, filled and sent in
+``IN_SLICES`` row slices, and the labels straight into the array returned,
+taken from ``OutputRing``. One wait, after the last chunk's copy out, ends
+a call.
+
 Under a profiler, ``predict`` records its stages as ``utils.profiling``
-spans (the copy in, FCN-8, the refinement, the copy out, the gathering; the
-pipeline path records the copies and the gathering alone).
+spans (the copy in, FCN-8, the refinement, the copy out, the wait for it;
+the pipeline path records the copies and the wait alone), and every
+allocation of a kept host buffer as ``predict.pin_alloc``.
 """
 
 from __future__ import annotations
 
 import os
+import weakref
 from typing import Mapping
 
 import numpy as np
@@ -51,6 +60,54 @@ from iterative_inference_segm_tpu_torch.models.registry import (
 )
 from iterative_inference_segm_tpu_torch.utils.checkpoint import check_npz_meta, load_npz
 from iterative_inference_segm_tpu_torch.utils.profiling import span
+
+
+# Slots of a Predictor's output ring: a caller may hold this many results
+# at once before a call falls back to a fresh pageable array.
+OUT_SLOTS = 8
+# Row slices of a chunk's copy in: the host fills slice i + 1 while the
+# copy engine moves slice i (4 beat 1 on an H100 at batch 128 and 32; PERF.md §6).
+IN_SLICES = 4
+
+
+def _row_slices(n: int) -> list[tuple[int, int]]:
+    """``[0, n)`` cut into at most ``IN_SLICES`` non-empty runs of rows."""
+    bounds = sorted({n * i // IN_SLICES for i in range(IN_SLICES + 1)})
+    return list(zip(bounds, bounds[1:]))
+
+
+class OutputRing:
+    """Host arrays for ``predict``'s results, kept across calls. A slot is
+    a tensor from ``alloc(shape, dtype)`` (page-locked on a card), handed
+    out as its numpy view. It is reused only for the same shape and dtype,
+    and only once the array it last handed out is gone: a view of that
+    array holds it as its base, so it holds the slot too. With
+    ``OUT_SLOTS`` slots held, ``take`` returns a fresh pageable array."""
+
+    def __init__(self, alloc):
+        self._alloc = alloc
+        self._slots: list[list] = []  # [tensor, weakref to the array it last handed out]
+
+    def take(self, shape, dtype: torch.dtype) -> tuple[torch.Tensor, np.ndarray, bool]:
+        """``(tensor, array, from a slot)``: the array is the tensor's numpy
+        view, held by the slot until the caller lets it go."""
+        shape = torch.Size(shape)
+        free = [s for s in self._slots if s[1]() is None]
+        slot = next((s for s in free if s[0].shape == shape and s[0].dtype == dtype), None)
+        if slot is None:
+            if len(self._slots) < OUT_SLOTS:
+                slot = [None, None]
+                self._slots.append(slot)
+            elif free:
+                slot = free[0]
+                slot[0] = None  # let the old buffer go before the new one is made
+            else:
+                t = torch.empty(shape, dtype=dtype)
+                return t, t.numpy(), False
+            slot[0] = self._alloc(shape, dtype)
+        out = slot[0].numpy()
+        slot[1] = weakref.ref(out)
+        return slot[0], out, True
 
 
 class Predictor:
@@ -116,6 +173,10 @@ class Predictor:
         self._depth = self._dae_kwargs.get("depth", 4)
         self._encoder = self._dae_kwargs.get("encoder", "pool")
         self._refine = refine
+        self._pin = self.device.type == "cuda"
+        self._stage: torch.Tensor | None = None  # a chunk's frames on their way in
+        self._stage_read: torch.cuda.Event | None = None  # its last copy to the device
+        self._out_ring = OutputRing(self._host_buffer)
         self._mesh = mesh
         self._pp = None
         if mesh is not None:
@@ -243,29 +304,65 @@ class Predictor:
             )
             return labels, y
 
+    def _host_buffer(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A host buffer the ``Predictor`` keeps: page-locked on a card."""
+        with span("predict.pin_alloc"):
+            return torch.empty(shape, dtype=dtype, pin_memory=self._pin)
+
+    def _stage_in(self, chunk: np.ndarray) -> torch.Tensor:
+        """The chunk's frames on the device, zero-padded to ``batch_size``
+        rows, through the staging buffer: each row slice is copied in by
+        torch's threads, then sent without waiting."""
+        shape = (self.batch_size, *chunk.shape[1:])
+        if self._stage is None or self._stage.shape != shape:
+            self._stage = None
+            self._stage = self._host_buffer(shape, torch.float32)
+        elif self._stage_read is not None:
+            self._stage_read.synchronize()  # the buffer's last copy to the device has read it
+        stage, got, src = self._stage, chunk.shape[0], torch.from_numpy(chunk)
+        if got < self.batch_size:
+            stage[got:].zero_()
+        x = torch.empty(shape, dtype=torch.float32, device=self.device)
+        for a, b in _row_slices(self.batch_size):
+            if a < got:
+                stage[a : min(b, got)].copy_(src[a : min(b, got)])
+            x[a:b].copy_(stage[a:b], non_blocking=True)
+        if self._pin:
+            self._stage_read = torch.cuda.Event()
+            self._stage_read.record(torch.cuda.current_stream(self.device))
+        return x
+
     def predict(self, images: np.ndarray, *, return_probs: bool = False):
         """images: (N, H, W, C) float in [0, 1] (or byte range with
-        ``input_scale=255.0``). Returns (N, H, W) int32 labels [, (N, H, W,
-        n_classes) float32 probs], as numpy arrays."""
+        ``input_scale=255.0``), N >= 1. Returns (N, H, W) int32 labels [,
+        (N, H, W, n_classes) float32 probs], as numpy arrays. The labels'
+        array comes from the ``Predictor``'s ring: it is the caller's until
+        dropped, and no later call writes into it."""
         with span("predict.stage_in"):
             images = np.asarray(images, np.float32)
-        labels_out, probs_out = [], []
+        n = images.shape[0]
+        if n == 0:
+            raise ValueError("predict needs at least one image; got 0")
         with no_autograd(self._mode):
-            for start in range(0, images.shape[0], self.batch_size):
+            for start in range(0, n, self.batch_size):
                 with span("predict.stage_in"):
                     chunk = images[start : start + self.batch_size]
                     got = chunk.shape[0]
-                    if got < self.batch_size:
-                        pad = np.zeros((self.batch_size - got, *chunk.shape[1:]), np.float32)
-                        chunk = np.concatenate([chunk, pad])
-                    x = torch.from_numpy(chunk).to(self.device)
+                    x = self._stage_in(chunk)
                 labels, probs = self._predict(x)
                 with span("predict.stage_out"):
-                    labels_out.append(labels[:got].cpu().numpy())
+                    if start == 0:
+                        out, labels_out, in_ring = self._out_ring.take((n, *labels.shape[1:]), labels.dtype)
+                        if return_probs:
+                            probs_out = torch.empty((n, *probs.shape[1:]), dtype=torch.float32)
+                    out[start : start + got].copy_(labels[:got], non_blocking=self._pin and in_ring)
                     if return_probs:
-                        probs_out.append(probs[:got].float().cpu().numpy())
+                        probs_out[start : start + got].copy_(probs[:got])
         with span("predict.gather"):
-            labels = np.concatenate(labels_out)
-            if return_probs:
-                return labels, np.concatenate(probs_out)
-        return labels
+            if self._pin:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+                done.synchronize()
+        if return_probs:
+            return labels_out, probs_out.numpy()
+        return labels_out

@@ -14,16 +14,24 @@ each feeds (``benchmark/metrics/<metric>.py``: the span's time less the
 device-busy time inside it, a call):
 
 - ``predict.stage_in``: the request's conversion to float32, then per
-  chunk the slice, the zero padding and the copy to the device ->
-  ``stage_in_host_ms_per_call``;
+  chunk the slice, the copy into the staging buffer (zero padding) and the
+  launch of its copy to the device -> ``stage_in_host_ms_per_call``;
 - ``predict.fcn8``: per chunk, the normalization and FCN-8 ->
   ``fcn_host_ms_per_call``;
 - ``predict.refine``: per chunk, the refinement engine and its label step
   -> ``refine_host_ms_per_call``;
-- ``predict.stage_out``: per chunk, the wait for the device and the copy of
-  the labels (and probabilities) to the host -> ``stage_out_host_ms_per_call``;
-- ``predict.gather``: the concatenation of the chunks' outputs ->
-  ``gather_host_ms_per_call``.
+- ``predict.stage_out``: per chunk, the launch of the labels' copy into the
+  array returned (on the first chunk, taking that array from the output
+  ring; probabilities are copied in full) -> ``stage_out_host_ms_per_call``;
+- ``predict.gather``: the one wait for the last copy, before the array is
+  handed over -> ``gather_host_ms_per_call``.
+
+Nested in ``stage_in`` or ``stage_out``, ``predict.pin_alloc`` wraps each
+allocation of a host buffer the ``Predictor`` keeps (page-locked on a
+card): the staging buffer, made once for a shape, and a miss of the output
+ring. It is never recorded on a hit, so its count a call,
+``pin_alloc_per_call``, is the ring's miss rate once the staging buffer is
+made.
 """
 
 from __future__ import annotations
@@ -67,6 +75,6 @@ def span(name: str):
 
     Usage::
         with profiling.span("predict.gather"):
-            labels = np.concatenate(chunks)
+            done.synchronize()
     """
     return _RecordFunctionFast(name) if _autograd_profiler._is_profiler_enabled else _OFF

@@ -1,7 +1,8 @@
 """The port's spans on the CPU: ``utils.profiling.span`` records a
 ``cpu_op`` only under a profiler; ``Predictor.predict`` records its five
-stages in order, disjoint and inside the call, without changing its labels;
-and the benchmark's five span metrics read them from ``benchmark.trace``.
+stages in order, disjoint and inside the call, without changing its labels,
+and ``predict.pin_alloc`` once for each host buffer it allocates; and the
+benchmark's five span metrics read them from ``benchmark.trace``.
 Small shapes: C = 5, 48x64, fc 16, DAE widths (8, 16, 32)."""
 
 import json
@@ -68,7 +69,7 @@ def test_predict_records_its_stages_in_order(traced):
     events = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name(), e.start_thread_id())
               for e in prof.profiler.kineto_results.events()]
     (call_a, call_b, _, thread), = [e for e in events if e[2] == btrace.CALL_SPAN]
-    spans = sorted(e for e in events if e[2].startswith("predict.") and e[3] == thread)
+    spans = sorted(e for e in events if e[2] in (*STAGES, "predict.gather") and e[3] == thread)
     assert [n for _, _, n, _ in spans] == ["predict.stage_in", *STAGES * 3, "predict.gather"]
     assert call_a <= spans[0][0] and spans[-1][1] <= call_b
     assert all(b <= a2 for (_, b, _, _), (a2, _, _, _) in zip(spans, spans[1:]))  # disjoint
@@ -84,3 +85,33 @@ def test_span_metrics_read_the_trace(traced):
     assert all(v is not None and v > 0 for v in read.values()), read
     call_ms = sum(b - a for a, b in t.calls) / len(t.calls) / 1e6
     assert sum(read.values()) <= call_ms
+
+
+def _pin_allocs(predictor, calls):
+    """The ``predict.pin_alloc`` events inside each of ``calls`` (thunks
+    that call ``predictor.predict``), run in one CPU profiler session."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        for call in calls:
+            with torch.profiler.record_function(btrace.CALL_SPAN):
+                call()
+    events = [(e.start_ns(), e.start_ns() + e.duration_ns(), e.name()) for e in prof.profiler.kineto_results.events()]
+    windows = sorted((a, b) for a, b, n in events if n == btrace.CALL_SPAN)
+    allocs = [a for a, _, n in events if n == "predict.pin_alloc"]
+    assert all(any(lo <= a <= hi for lo, hi in windows) for a in allocs)
+    return [sum(lo <= a <= hi for a in allocs) for lo, hi in windows]
+
+
+def test_pin_alloc_once_per_miss_never_on_a_hit():
+    predictor = _predictor("half")
+    rng = np.random.default_rng(5)
+    four, three = rng.random((4, *HW, 3), dtype=np.float32), rng.random((3, *HW, 3), dtype=np.float32)
+    held = []
+    counts = _pin_allocs(predictor, [
+        lambda: predictor.predict(four),  # the staging buffer and the first output slot
+        lambda: predictor.predict(four),  # the first slot again: its array is gone
+        lambda: held.append(predictor.predict(four)),  # a hit, then held
+        lambda: predictor.predict(four),  # the held slot is skipped: a second one
+        lambda: predictor.predict(three),  # another shape: a third slot
+        lambda: predictor.predict(three),  # the third slot again
+    ])
+    assert counts == [2, 0, 0, 1, 1, 0]
